@@ -277,63 +277,22 @@ def phase_kernels(report):
              ("quick_gelu", 512, 231, 1e-5, False)]
     cases += [("gelu", d, 1003, 1e-6, True) for d in (192, 384, 768, 1536)]
     for act, D, M, eps, with_gamma in cases:
-        H = 4 * D
         for dt in (torch.float32, torch.bfloat16):
-            def rn(*shape, scale=1.0):
-                return torch.randn(shape, generator=gen, device=dev) * scale
-
-            x = rn(M, D).to(dt)
-            res = rn(M, D).to(dt)
-            lns, lnb = 1.0 + rn(D, scale=0.1), rn(D, scale=0.1)
-            w1, b1 = rn(D, H, scale=D ** -0.5), rn(H, scale=0.1)
-            w2, b2 = rn(H, D, scale=H ** -0.5), rn(D, scale=0.1)
-            gamma = 0.5 + rn(D, scale=0.1) if with_gamma else None
-            args = (x, res, lns, lnb, w1, b1, w2, b2, gamma)
-            got = L.fused_ln_mlp(*args, act=act, eps=eps).float()
-            want = L.ln_mlp_plain(*args, act=act, eps=eps).float()
-            atol, rtol = ((3e-4, 0.0) if dt == torch.float32
-                          else (3e-2, 2e-2))
-            diff = (got - want).abs()
-            err = float(diff.max())
-            good = bool((diff <= atol + rtol * want.abs()).all())
-            ok &= good
-            flops = 4.0 * M * D * H
-            nbytes = (3 * M * D + 2 * D * H) * x.element_size() \
-                + (3 * D + H) * 4
-            entry = {"kernel": "ln_mlp", "act": act, "dtype": str(dt)[6:],
-                     "M": M, "D": D, "H": H, "max_abs_err": err,
-                     "atol": atol, "rtol": rtol, "ok": good,
-                     "bound_ms_f32_peak": _bound(nbytes, flops, PEAK_F32)[0],
-                     "bound_ms_bf16_peak": _bound(nbytes, flops,
-                                                  PEAK_BF16)[0]}
-            if dt == torch.float32:
-                # the design as built: three TF32 mma per f32 product
-                entry["bound_ms_3xtf32_design"] = _bound(
-                    nbytes, 3 * flops, PEAK_TF32)[0]
-                # what one TF32 pass reads on the same inputs (cuBLAS with
-                # TF32 on), beside the limit it must not pass
-                torch.backends.cuda.matmul.allow_tf32 = True
-                try:
-                    tf32 = L.ln_mlp_plain(*args, act=act, eps=eps)
-                finally:
-                    torch.backends.cuda.matmul.allow_tf32 = False
-                entry["tf32_plain_max_abs_err"] = float(
-                    (tf32 - want).abs().max())
-                del tf32
-            if D in (768, 512):
-                entry["ms"] = time_ms(
-                    lambda: L.fused_ln_mlp(*args, act=act, eps=eps))
-                entry["plain_ms"] = time_ms(
-                    lambda: L.ln_mlp_plain(*args, act=act, eps=eps))
+            args = _mlp_args(gen, dev, M, D, with_gamma, dt)
+            # the ConvNeXt widths are timed at their path shapes below
+            timed = act == "quick_gelu"
+            entry = _b2_entry(args, act, eps, timed)
+            ok &= entry["ok"]
             checks.append(entry)
             if act == "quick_gelu" and D == 768 and dt == torch.float32:
-                b_ms, b_by = _bound(nbytes, flops, PEAK_F32)
                 report["ln_mlp"] = {
                     "name": "ln_mlp", "route": "cuda",
                     "source": "spatially_aware_ai_tpu_torch/csrc/ln_mlp.cu",
-                    "replaces": MLP_REPLACES, "max_abs_err": err,
-                    "ms": entry["ms"], "plain_ms": entry["plain_ms"],
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                    "replaces": MLP_REPLACES,
+                    **{k: entry[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}}
+            del args
     ok &= _convnext_mlp_checks(gen, dev, checks, report)
     ok &= _paint_check(gen, dev, checks, report)
     ok &= _tile_check(dev, checks, report)
@@ -343,6 +302,99 @@ def phase_kernels(report):
                          "version")
 
 
+def _mlp_args(gen, dev, M, D, with_gamma, dt):
+    """B2's inputs: x, residual [M, D] in dt; f32 LN, bias and gamma
+    vectors; w1 [D, 4D] and w2 [4D, D] as the callers pass them, nn.Linear
+    weights transposed (`fc.weight.t()`)."""
+    import torch
+
+    H = 4 * D
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return (rn(M, D).to(dt), rn(M, D).to(dt), 1.0 + rn(D, scale=0.1),
+            rn(D, scale=0.1), rn(H, D, scale=D ** -0.5).t(),
+            rn(H, scale=0.1), rn(D, H, scale=H ** -0.5).t(),
+            rn(D, scale=0.1), 0.5 + rn(D, scale=0.1) if with_gamma else None)
+
+
+def _b2_weight_stream(M, D, H, esize):
+    """Bytes of weights B2 reads from L2 in one launch: the earlier
+    mma.sync design, blocks of TM = 64 / 32 / 16 rows (D <= 384 / 768 / 1536), each
+    reading both matrices in the activation type; this design, tiles of 128
+    rows, each reading both matrices' planes once (f32: big and small TF32
+    planes, twice the bytes; bf16: one plane)."""
+    tm = 64 if D <= 384 else 32 if D <= 768 else 16
+    planes = 2 if esize == 4 else 1
+    return {"old_mma_sync": -(-M // tm) * 2 * D * H * esize,
+            "new_wgmma": -(-M // 128) * 2 * D * H * esize * planes}
+
+
+def _b2_entry(args, act, eps, timed):
+    """B2 against its plain version on args; with `timed`, its ms, the
+    plain version's and the library's: the two products alone as cuBLAS
+    f32 GEMMs (torch.addmm twice, TF32 off, on the LN'd input and the
+    activation the plain version makes), the same work B2's tensor cores
+    do. The bound is the 3xTF32 tensor-core floor for f32 (three TF32
+    products per f32 product), the bf16 peak for bf16; the f32 CUDA-core
+    figure stands beside it."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models import ln_mlp as L
+
+    x, res, lns, lnb, w1, b1, w2, b2, gamma = args
+    M, D = x.shape
+    H = w1.shape[1]
+    dt = x.dtype
+    got = L.fused_ln_mlp(*args, act=act, eps=eps).float()
+    want = L.ln_mlp_plain(*args, act=act, eps=eps).float()
+    atol, rtol = (3e-4, 0.0) if dt == torch.float32 else (3e-2, 2e-2)
+    diff = (got - want).abs()
+    good = bool((diff <= atol + rtol * want.abs()).all())
+    err = float(diff.max())
+    del got, diff
+    flops = 4.0 * M * D * H
+    nbytes = (3 * M * D + 2 * D * H) * x.element_size() + (3 * D + H) * 4
+    if dt == torch.float32:
+        bound_ms, bound_by = _bound(nbytes, 3 * flops, PEAK_TF32)
+    else:
+        bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16)
+    entry = {"kernel": "ln_mlp", "act": act, "dtype": str(dt)[6:], "M": M,
+             "D": D, "H": H, "route": L.route(D, H),
+             "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": good,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_ms_f32_cuda_core": _bound(nbytes, flops, PEAK_F32)[0],
+             "l2_weight_bytes": _b2_weight_stream(M, D, H, x.element_size())}
+    if dt == torch.float32:
+        # what one TF32 pass reads on the same inputs (cuBLAS with TF32
+        # on), beside the limit it must not pass
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = L.ln_mlp_plain(*args, act=act, eps=eps)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        entry["tf32_plain_max_abs_err"] = float(
+            (tf32.float() - want).abs().max())
+        del tf32
+    del want
+    entry["library_ms"] = None
+    if timed:
+        kw = dict(act=act, eps=eps)
+        entry["ms"] = time_ms(lambda: L.fused_ln_mlp(*args, **kw))
+        entry["plain_ms"] = time_ms(lambda: L.ln_mlp_plain(*args, **kw))
+        if dt == torch.float32:
+            xf = x.float()
+            mu = xf.mean(-1, keepdim=True)
+            lnx = (xf - mu) * torch.rsqrt(
+                (xf - mu).square().mean(-1, keepdim=True) + eps) * lns + lnb
+            hid = L.activation(lnx @ w1 + b1, act)
+            entry["library_ms"] = time_ms(lambda: (
+                torch.addmm(b1, lnx, w1), torch.addmm(b2, hid, w2)))
+            del xf, mu, lnx, hid
+    return entry
+
+
 def _convnext_mlp_checks(gen, dev, checks, report):
     """B2 in f32 at the four ConvNeXt-L stage shapes of the kMaX path: 8
     frames padded to 992x1312 give M = 8 * 248 * 328 rows at os4 and a
@@ -350,39 +402,16 @@ def _convnext_mlp_checks(gen, dev, checks, report):
     tolerance as above (3e-4 abs)."""
     import torch
 
-    from spatially_aware_ai_tpu_torch.models import ln_mlp as L
-
     ok = True
     by_shape = {}
     for D, M in ((192, 650752), (384, 162688), (768, 40672), (1536, 10168)):
-        H = 4 * D
-
-        def rn(*shape, scale=1.0):
-            return torch.randn(shape, generator=gen, device=dev) * scale
-
-        args = (rn(M, D), rn(M, D), 1.0 + rn(D, scale=0.1), rn(D, scale=0.1),
-                rn(D, H, scale=D ** -0.5), rn(H, scale=0.1),
-                rn(H, D, scale=H ** -0.5), rn(D, scale=0.1),
-                0.5 + rn(D, scale=0.1))
-        kw = dict(act="gelu", eps=1e-6)
-        err = float((L.fused_ln_mlp(*args, **kw)
-                     - L.ln_mlp_plain(*args, **kw)).abs().max())
-        good = err <= 3e-4
-        ok &= good
-        flops = 4.0 * M * D * H
-        nbytes = (3 * M * D + 2 * D * H) * 4 + (3 * D + H) * 4
-        b_ms, b_by = _bound(nbytes, flops, PEAK_F32)
-        entry = {"kernel": "ln_mlp", "path": "kmax ConvNeXt-L",
-                 "act": "gelu", "dtype": "float32", "M": M, "D": D, "H": H,
-                 "max_abs_err": err, "atol": 3e-4, "ok": good,
-                 "ms": time_ms(lambda: L.fused_ln_mlp(*args, **kw)),
-                 "plain_ms": time_ms(lambda: L.ln_mlp_plain(*args, **kw)),
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "bound_ms_3xtf32_design": _bound(nbytes, 3 * flops,
-                                                  PEAK_TF32)[0]}
+        args = _mlp_args(gen, dev, M, D, True, torch.float32)
+        entry = _b2_entry(args, "gelu", 1e-6, timed=True)
+        entry["path"] = "kmax ConvNeXt-L"
+        ok &= entry["ok"]
         checks.append(entry)
         by_shape[f"D{D}_M{M}"] = {k: entry[k] for k in (
-            "ms", "plain_ms", "bound_ms", "max_abs_err")}
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         del args
     report.setdefault("ln_mlp", {"name": "ln_mlp"})["convnext_f32"] = \
         by_shape

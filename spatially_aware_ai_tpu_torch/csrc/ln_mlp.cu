@@ -10,209 +10,272 @@
 // the matmul operands are rounded to the activation type T (f32 or bf16),
 // as the JAX kernel feeds its MXU in the activation dtype.
 //
-// What bounds it on this card: operations. At the CLIP vision shape
-// (M = 14,000 tokens, D = 768, H = 3072) one call is 2 * 2 * M * D * H
-// ~ 132 GFLOP against ~90 MB of activations and weights.
+// What bounds it on this card: operations. One call is 4 * M * D * H flops
+// (H = 4D: 16 M D^2); f32 products run as 3xTF32 (v = big + small, the
+// product as small*big + big*small + big*big, the dropped small*small term
+// below 2^-22 of it), so the tensor-core floor is 3 * 4 M D H / 495 TFLOP/s.
+// The earlier design (warp-level mma.sync, the whole [TM, D] output tile in
+// registers) was held back by three things, and this one answers each:
 //
-// Design: the products run on the tensor cores with warp-level mma.sync
-// (m16n8k8). bf16 operands go in as they are. f32 operands are split into
-// two TF32 halves, v = big + small, and multiplied as small*big + big*small
-// + big*big (three mma per product tile): the dropped small*small term is
-// below 2^-22 of the product, so the result keeps close to f32 precision
-// rather than TF32's. One block of 8 warps owns TM rows. It computes LN of
-// its rows once into shared memory (rounded to T), then loops over hidden
-// steps of 64 columns: GEMM1 gives h = act(LN(x) W1[:, step] + b1) (rounded
-// to T) in shared memory; GEMM2 adds h @ W2[step, :] into an f32
-// accumulator of the block's whole [TM, D] output tile, held in registers
-// as mma fragments (at most 24 tiles of 16 x 8 per warp, 96 floats per
-// thread). The hidden activation never reaches device memory. The weights
-// (<= 19 MB, resident in the 50 MB L2) stream through two shared-memory
-// slots with cp.async, one chunk ahead of the tensor cores (more slots
-// measured no faster). A chunk is 8 * D elements either way: D / 8 rows of
-// a W1 step, or 8 rows of W2; a hidden step is 16 chunks. In GEMM2 every
-// warp takes all TM rows and D / 8 columns, so that each weight fragment
-// read from shared memory feeds TM / 16 products. Each block reads every
-// weight once, so TM is as large as the register budget allows (TM = 64 /
-// 32 / 16 for D <= 384 / 768 / 1536). Shared-memory rows are padded so that
-// fragment loads hit distinct banks. Rows past M compute on zeros and are
-// not stored.
+// 1. The weight stream from L2. A block of TM = 16-64 rows read both weight
+//    matrices, 32 D^2 M / TM bytes a launch. Here a CTA owns 128 rows (two
+//    consumer warpgroups of 64) and a producer warpgroup (one thread
+//    issues the copies; its registers go to the consumers) streams the weights
+//    through a ring of shared-memory stages with TMA (cp.async.bulk.tensor,
+//    128-byte swizzle) and mbarriers; both warpgroups read each stage.
+// 2. mma.sync and re-split fragments. Products are wgmma.mma_async
+//    (m64n64k8 tf32, m64n64k16 bf16) with the weights (B) read from shared
+//    memory by descriptor and A from registers. The weights are split into
+//    big / small TF32 planes once per call by sai_ln_mlp_split (bf16: one
+//    plane), K-major, so no B fragment is split in the mainloop; each A
+//    value is split once per use in registers.
+// 3. A weight copy per call. The planes are written from the callers'
+//    nn.Linear layout ([H, D] and [D, H], any strides), which is the K-major
+//    layout wgmma takes for TF32; the split pass replaces the copy.
 //
-// What limits it in practice is not the mma rate: with one block of 8 warps
-// per SM, the fragment loads and TF32 splits of GEMM1 and GEMM2 and the
-// weight stream from L2 (M / TM blocks, each reading both weight matrices)
-// take most of the time. A wgmma/TMA design, with clusters sharing weight
-// tiles, is later work.
+// Where the hidden lives (a warpgroup's [64, D] f32 accumulator costs D / 2
+// registers a thread):
+// - D <= 256, one fused kernel (route 1). A CTA normalises its 128 rows
+//   once into shared memory, then walks the hidden in chunks of 64: GEMM1
+//   gives h = act(LN(x) W1[:, chunk] + b1) in registers, and GEMM2 adds
+//   h W2[chunk, :] into the [64, D] accumulator. h goes from the GEMM1
+//   accumulator straight into GEMM2's A registers: for TF32 the split pass
+//   permutes W2's K within each group of 8 to match the accumulator's
+//   column order (position s holds hidden 2s for s < 4, 2(s-4)+1 after);
+//   for bf16 the two layouts already agree. The hidden never reaches
+//   device memory, as in the TPU kernel.
+// - D > 256, two kernels sharing the mainloop (route 2): phase 1 writes
+//   h = act(LN(x) W1 + b1) [M, H] in T; phase 2 computes residual +
+//   gamma (h W2 + b2), both with 128-row x 256-column output tiles. Each
+//   thread reads its A values as contiguous 16-byte vectors from device
+//   memory: the split pass permutes K within each slab (32 f32 / 64 bf16)
+//   so that a thread's fragment columns are contiguous; the next slab's
+//   values load while this slab's products run. A pre-pass (ln_stats)
+//   computes each row's mean and 1/std once, and phase 1 applies LN to its
+//   A values in registers.
+// The grid is persistent: one CTA an SM walks the output tiles. Rows past M
+// compute on zeros and are not stored. The 2-CTA cluster multicast of
+// weight tiles is not done here (each CTA reads its stages from L2).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTH = 64;        // hidden columns per step
-constexpr int kMaxTiles2 = 24;  // GEMM2 tiles per warp: TM * D <= 24576
-constexpr int kWPad = 8;       // weight-slot row padding: stride = 8 (mod 32)
-constexpr int kStages = 2;     // weight ring slots (double buffering)
+constexpr int kConsumers = 256;               // two warpgroups
+constexpr int kThreads = kConsumers + 128;     // + the producer warpgroup
+constexpr int kRows = 128;                     // rows of a CTA tile
+constexpr int kBox = 64;                       // weight rows of a TMA box
+constexpr int kBoxBytes = kBox * 128;          // one 64 x 128 B box
+constexpr int kSmemMax = 227 * 1024;
+constexpr int kMaxStages = 6;
+constexpr int kMaxSub = 4;                     // 64-column subtiles
+constexpr int kLnPad = 4;                      // LN tile row padding (floats)
+
+// ---------------------------------------------------------------- PTX
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// one TMA box (k0 = inner coordinate, r0 = row) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int k0, int r0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(r0),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the producer warpgroup gives registers to the two consumer warpgroups
+// (3 x 128 x 168 = 40 x 128 + 2 x 232 x 128)
+__device__ __forceinline__ void regs_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void regs_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wgmma reads its A registers after it issues: holding them live until
+// after the wait keeps the compiler from reusing them (for the next slab's
+// loads) while the products run
+template <int N, int F>
+__device__ __forceinline__ void hold(uint32_t (&a)[N][F]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < F; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// K-major operand, 128-byte swizzle: 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+#define SAI_ACC32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define SAI_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d[64 x 64] += a[64 x 8] (registers, tf32) * B[8 x 64] (shared, K-major)
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SAI_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SAI_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[64 x 64] += a[64 x 16] (registers, bf16) * B[16 x 64] (shared, K-major)
+__device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a,
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SAI_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : SAI_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t tf32_bits(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// ---------------------------------------------------------------- types
 
 template <typename T>
-struct IO;
+struct Op;
 
+// f32: 3xTF32. A k-step fragment is 8 registers: big a0..a3, small a0..a3.
 template <>
-struct IO<float> {
+struct Op<float> {
+  static constexpr int kK = 32;       // K of a slab (128 bytes a row)
+  static constexpr int kStep = 8;     // K of one wgmma
+  static constexpr int kPlanes = 2;
+  static constexpr int kFrag = 8;
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  // values at fragment slots a0..a3
+  static __device__ __forceinline__ void frag(uint32_t* a, float v0,
+                                              float v1, float v2, float v3) {
+    const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = tf32_bits(v[i]);
+      a[4 + i] = tf32_bits(v[i] - __uint_as_float(a[i]));
+    }
+  }
+  // one k-step: B big at b, small at b + plane bytes
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint32_t b, uint32_t plane) {
+    wgmma_tf32(d, a + 4, desc_sw128(b));          // small * big
+    wgmma_tf32(d, a, desc_sw128(b + plane));      // big * small
+    wgmma_tf32(d, a, desc_sw128(b));              // big * big
+  }
+  static __device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  static __device__ __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
 };
 
+// bf16: one product. A k-step fragment is 4 registers of bf16 pairs.
 template <>
-struct IO<__nv_bfloat16> {
+struct Op<__nv_bfloat16> {
+  static constexpr int kK = 64;
+  static constexpr int kStep = 16;
+  static constexpr int kPlanes = 1;
+  static constexpr int kFrag = 4;
   static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
   static __device__ __forceinline__ float round(float v) {
     return __bfloat162float(__float2bfloat16(v));
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint32_t b, uint32_t) {
+    wgmma_bf16(d, a, desc_sw128(b));
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a,
+                                                float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   }
 };
 
-// Warp-level products of a 16 x 8 A tile (row-major f32, row stride lda)
-// by an 8 x 8 B tile (row-major T, row stride ldb), both in shared memory,
-// into a 16 x 8 f32 accumulator c[4]: lane (g = lane / 4, t = lane % 4)
-// holds c rows g and g + 8, columns 2t and 2t + 1 (the PTX m16n8k8 fragment
-// layouts).
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<float> {  // 3xTF32
-  static constexpr int kPad = 4;  // A-tile row stride = 4 (mod 32) banks
-  struct A {
-    uint32_t big[4], small[4];
-  };
-  struct B {
-    uint32_t big[2], small[2];
-  };
-  static __device__ __forceinline__ uint32_t tf32(float v) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-    return r;
-  }
-  static __device__ __forceinline__ void split(float v, uint32_t& big,
-                                               uint32_t& small) {
-    big = tf32(v);
-    small = tf32(v - __uint_as_float(big));
-  }
-  static __device__ __forceinline__ void load_a(A& a, const float* s, int ld,
-                                                int g, int t) {
-    split(s[g * ld + t], a.big[0], a.small[0]);
-    split(s[(g + 8) * ld + t], a.big[1], a.small[1]);
-    split(s[g * ld + t + 4], a.big[2], a.small[2]);
-    split(s[(g + 8) * ld + t + 4], a.big[3], a.small[3]);
-  }
-  static __device__ __forceinline__ void load_b(B& b, const float* w, int ld,
-                                                int g, int t) {
-    split(w[t * ld + g], b.big[0], b.small[0]);
-    split(w[(t + 4) * ld + g], b.big[1], b.small[1]);
-  }
-  static __device__ __forceinline__ void mma1(float* c, const uint32_t* a,
-                                              const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ void mma(float* c, const A& a,
-                                             const B& b) {
-    mma1(c, a.small, b.big);
-    mma1(c, a.big, b.small);
-    mma1(c, a.big, b.big);
-  }
-};
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static constexpr int kPad = 8;  // 8-byte A loads: stride = 8 (mod 32)
-  struct A {
-    uint32_t r[2];
-  };
-  struct B {
-    uint32_t r;
-  };
-  static __device__ __forceinline__ uint32_t pack(__nv_bfloat162 p) {
-    return *reinterpret_cast<uint32_t*>(&p);
-  }
-  // the A tiles hold values already rounded to bf16: the packing is exact
-  static __device__ __forceinline__ void load_a(A& a, const float* s, int ld,
-                                                int g, int t) {
-    const float2 lo = *reinterpret_cast<const float2*>(s + g * ld + 2 * t);
-    const float2 hi =
-        *reinterpret_cast<const float2*>(s + (g + 8) * ld + 2 * t);
-    a.r[0] = pack(__floats2bfloat162_rn(lo.x, lo.y));
-    a.r[1] = pack(__floats2bfloat162_rn(hi.x, hi.y));
-  }
-  static __device__ __forceinline__ void load_b(B& b, const __nv_bfloat16* w,
-                                                int ld, int g, int t) {
-    __nv_bfloat162 p;
-    p.x = w[(2 * t) * ld + g];
-    p.y = w[(2 * t + 1) * ld + g];
-    b.r = pack(p);
-  }
-  static __device__ __forceinline__ void mma(float* c, const A& a,
-                                             const B& b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(b.r));
-  }
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Weight chunk c (16 per hidden step of 64 columns; the block's steps start
-// at step0) into a ring slot, by all threads of the block, 16 bytes per
-// cp.async. Chunks 0-7 of a step
-// are W1[q*D/8 : (q+1)*D/8, jb : jb+64] as [D/8][64 + kWPad]; chunks 8-15
-// are W2[jb + 8q' : jb + 8q' + 8, :] as [8][D + kWPad].
-template <typename T>
-__device__ __forceinline__ void load_chunk(T* slot, const T* w1,
-                                           const T* w2, int c, int step0,
-                                           int D, int H, int tid) {
-  constexpr int E = 16 / sizeof(T);  // elements per 16 bytes
-  const int jb = ((step0 + (c >> 4)) % (H / kTH)) * kTH, q = c & 15;
-  if (q < 8) {
-    const int rows = D / 8, r0 = q * rows;
-    constexpr int ppr = kTH / E;
-    for (int p = tid; p < rows * ppr; p += kThreads) {
-      const int r = p / ppr, e = (p % ppr) * E;
-      cp_async16(slot + r * (kTH + kWPad) + e,
-                 w1 + (size_t)(r0 + r) * H + jb + e);
-    }
-  } else {
-    const int r0 = jb + (q - 8) * 8, ppr = D / E;
-    for (int p = tid; p < 8 * ppr; p += kThreads) {
-      const int r = p / ppr, e = (p % ppr) * E;
-      cp_async16(slot + r * (D + kWPad) + e, w2 + (size_t)(r0 + r) * D + e);
-    }
-  }
+template <int ACT>
+__device__ __forceinline__ float activate(float h) {
+  if (ACT == 0) return h * (1.f / (1.f + expf(-1.702f * h)));  // quick_gelu
+  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));     // exact gelu
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -221,278 +284,735 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int ACT>
-__device__ __forceinline__ float activate(float h) {
-  if (ACT == 0) return h * (1.f / (1.f + expf(-1.702f * h)));  // quick_gelu
-  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));     // exact gelu
-}
+// ---------------------------------------------------------------- the ring
 
-// elements of one ring slot: max(D/8 * (64 + pad), 8 * (D + pad))
-__host__ __device__ constexpr int slot_elems(int D) {
-  return (D / 8) * (kTH + kWPad) > 8 * (D + kWPad) ? (D / 8) * (kTH + kWPad)
-                                                   : 8 * (D + kWPad);
-}
-
-template <typename T, int TM>
-size_t smem_bytes(int D) {
-  return ((size_t)TM * (D + Mma<T>::kPad) +
-          (size_t)TM * (kTH + Mma<T>::kPad)) *
-             sizeof(float) +
-         (size_t)kStages * slot_elems(D) * sizeof(T);
-}
-
-template <typename T, int TM, int ACT>
-__global__ void __launch_bounds__(kThreads, 1)
-ln_mlp_kernel(const T* __restrict__ x, const T* __restrict__ res,
-              const float* __restrict__ lns, const float* __restrict__ lnb,
-              const T* __restrict__ w1, const float* __restrict__ b1,
-              const T* __restrict__ w2, const float* __restrict__ b2,
-              const float* __restrict__ gamma, T* __restrict__ out, int M,
-              int D, int H, float eps) {
-  using MT = Mma<T>;
-  constexpr int S = kStages;
-  constexpr int WM = TM / 16;          // warps along the rows
-  constexpr int WN = kWarps / WM;      // warps along the columns
-  constexpr int NT1 = kTH / (8 * WN);  // GEMM1 tiles per warp
-  constexpr int ldh = kTH + MT::kPad;
-  constexpr int ldw1 = kTH + kWPad;
-  const int ldx = D + MT::kPad;
-  const int ldw2 = D + kWPad;
-  extern __shared__ float4 smem4[];
-  float* lnx_s = reinterpret_cast<float*>(smem4);  // [TM][ldx]
-  float* h_s = lnx_s + (size_t)TM * ldx;           // [TM][ldh]
-  T* ring = reinterpret_cast<T*>(h_s + (size_t)TM * ldh);  // S slots
-  const int slot = slot_elems(D);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-  const int row0 = blockIdx.x * TM;
-  const int n_chunks = 16 * (H / kTH);
-  // Blocks start their walk over the hidden steps at different steps, so
-  // that the SMs do not all read the same weight lines of L2 at once.
-  const int step0 = blockIdx.x % (H / kTH);
-
-  // the first S - 1 weight chunks load while LN runs
-#pragma unroll
-  for (int c = 0; c < S - 1; ++c) {
-    if (c < n_chunks)
-      load_chunk(ring + c * slot, w1, w2, c, step0, D, H, tid);
-    cp_async_commit();
-  }
-
-  // ---- LayerNorm of the block's rows, once ----
-  for (int m = warp; m < TM; m += kWarps) {
-    const int gm = row0 + m;
-    const T* xr = x + (size_t)gm * D;
-    float s = 0.f;
-    if (gm < M)
-      for (int d = lane; d < D; d += 32) s += IO<T>::load(xr + d);
-    const float mu = warp_sum(s) / D;
-    float v = 0.f;
-    if (gm < M)
-      for (int d = lane; d < D; d += 32) {
-        const float c = IO<T>::load(xr + d) - mu;
-        v += c * c;
-      }
-    const float rs = rsqrtf(warp_sum(v) / D + eps);
-    for (int d = lane; d < D; d += 32) {
-      const float xv = gm < M ? IO<T>::load(xr + d) : 0.f;
-      lnx_s[m * ldx + d] = IO<T>::round((xv - mu) * rs * lns[d] + lnb[d]);
+// Stages of weight boxes: `full` completes when the producer's TMA bytes
+// land, `empty` when the 8 consumer warps are done with the stage.
+struct Ring {
+  uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages;
+  int stage_bytes;
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1;
     }
   }
+  // consumer side
+  __device__ __forceinline__ uint32_t acquire() {
+    mbar_wait(&full[slot], phase);
+    return smem_u32(base + (size_t)slot * stage_bytes);
+  }
+  __device__ __forceinline__ void release(int lane) {
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    next();
+  }
+  // producer side: the stage's shared-memory pointer once it is free
+  __device__ __forceinline__ uint8_t* produce(uint32_t bytes) {
+    mbar_wait(&empty[slot], phase ^ 1);
+    mbar_expect_tx(&full[slot], bytes);
+    return base + (size_t)slot * stage_bytes;
+  }
+};
 
-  // GEMM2 gives each warp all TM rows and D / 8 columns, so that a weight
-  // fragment read from shared memory feeds TM / 16 products
-  constexpr int MT2 = TM / 16;
-  constexpr int NT2 = kMaxTiles2 / MT2;
-  const int nt2 = D / 64;  // column tiles of this warp (<= NT2)
-  const int c2 = warp * (D / 8);   // the warp's first output column
-  const int c1 = wn * (kTH / WN);  // the warp's first column of a step
-  const int rows1 = D / 8;         // W1 rows per chunk
-  const float* a_ln = lnx_s + wm * 16 * ldx;
-  float acc[MT2][NT2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT2; ++mt)
-#pragma unroll
-    for (int i = 0; i < NT2; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][i][q] = 0.f;
+// Carve the dynamic shared memory: `lead` bytes first (1024-aligned), then
+// the ring, then the barriers. Thread 0 initialises the barriers.
+__device__ Ring make_ring(uint8_t* smem, size_t lead, int stages,
+                          int stage_bytes, uint8_t** lead_ptr) {
+  uint8_t* p = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
+  *lead_ptr = p;
+  Ring r;
+  r.base = p + lead;
+  r.full = reinterpret_cast<uint64_t*>(r.base + (size_t)stages * stage_bytes);
+  r.empty = r.full + stages;
+  r.stages = stages;
+  r.stage_bytes = stage_bytes;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&r.full[i], 1);
+      mbar_init(&r.empty[i], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
 
-  // Chunk c is in its slot after the wait and the barrier; the barrier also
-  // means every warp is done with the slot that chunk c + S - 1 refills
-  // (it held chunk c - 1), with h_s of the previous step, and (at c = 0)
-  // that the LN tile is complete.
-  int c = 0;
-  auto next_chunk = [&]() -> const T* {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    const int nc = c + S - 1;
-    if (nc < n_chunks)
-      load_chunk(ring + (nc % S) * slot, w1, w2, nc, step0, D, H, tid);
-    cp_async_commit();
-    return ring + (c % S) * slot;
-  };
+size_t smem_total(size_t lead, int stages, int stage_bytes) {
+  return 1024 + lead + (size_t)stages * stage_bytes + 16 * stages;
+}
 
-  for (int step = 0; step < H / kTH; ++step) {
-    const int jb = ((step0 + step) % (H / kTH)) * kTH;
-    // ---- GEMM1: h = act(LN(x) @ W1[:, jb:jb+64] + b1) into h_s ----
-    // two accumulators (even / odd k-steps) halve the mma dependency chain
-    float hacc[2][NT1][4];
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int i = 0; i < NT1; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) hacc[p][i][q] = 0.f;
-    for (int q = 0; q < 8; ++q, ++c) {
-      const T* ws = next_chunk() + c1;
-      const float* as = a_ln + q * rows1;
-#pragma unroll 2
-      for (int kk = 0; kk < rows1; kk += 16) {
-        typename MT::A fa;
-        MT::load_a(fa, as + kk, ldx, g, t);
-#pragma unroll
-        for (int i = 0; i < NT1; ++i) {
-          typename MT::B fb;
-          MT::load_b(fb, ws + kk * ldw1 + i * 8, ldw1, g, t);
-          MT::mma(hacc[0][i], fa, fb);
+int stages_for(size_t lead, int stage_bytes) {
+  int s = kMaxStages;
+  while (s > 2 && smem_total(lead, s, stage_bytes) > (size_t)kSmemMax) --s;
+  return s;
+}
+
+// ---------------------------------------------------------------- route 1
+
+// The fused kernel, D <= 256. Stage = one 64-row box per plane of W1 planes
+// [P][H][D] (rows: hidden) or W2 planes [P][D][H] (rows: output columns).
+// Per row tile and hidden chunk c of 64 the producer loads, in order:
+// GEMM1: D / kK slabs of W1 rows [64c, 64c + 64); GEMM2: for each of the
+// 64 / kK hidden slabs, D / 64 boxes of W2 (one per output subtile).
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_mlp_fused(const __grid_constant__ CUtensorMap w1map,
+             const __grid_constant__ CUtensorMap w2map,
+             const T* __restrict__ x, const T* __restrict__ res,
+             const float* __restrict__ lns, const float* __restrict__ lnb,
+             const float* __restrict__ b1, const float* __restrict__ b2,
+             const float* __restrict__ gamma, T* __restrict__ out, int M,
+             int D, int H, float eps, int stages) {
+  using O = Op<T>;
+  extern __shared__ uint8_t smem[];
+  const int ld = D + kLnPad;
+  uint8_t* lead;
+  Ring ring = make_ring(smem, (size_t)kRows * ld * sizeof(float), stages,
+                        O::kPlanes * kBoxBytes, &lead);
+  float* lnt = reinterpret_cast<float*>(lead);
+  const int tiles = (M + kRows - 1) / kRows;
+  const int nsub = D / 64;
+  const int chunks = H / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp >= kConsumers / 32) {  // ---- producer: one thread issues TMA
+    regs_producer();
+    if (warp == kConsumers / 32 && lane == 0) {
+      const uint32_t bytes = O::kPlanes * kBoxBytes;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int c = 0; c < chunks; ++c) {
+          for (int s = 0; s < D / O::kK; ++s) {
+            uint8_t* dst = ring.produce(bytes);
+            for (int p = 0; p < O::kPlanes; ++p)
+              tma_load(dst + p * kBoxBytes, &w1map, s * O::kK, p * H + c * 64,
+                       &ring.full[ring.slot]);
+            ring.next();
+          }
+          for (int s = 0; s < 64 / O::kK; ++s)
+            for (int n = 0; n < nsub; ++n) {
+              uint8_t* dst = ring.produce(bytes);
+              for (int p = 0; p < O::kPlanes; ++p)
+                tma_load(dst + p * kBoxBytes, &w2map, c * 64 + s * O::kK,
+                         p * D + n * 64, &ring.full[ring.slot]);
+              ring.next();
+            }
         }
-        if (kk + 8 < rows1) {
-          MT::load_a(fa, as + kk + 8, ldx, g, t);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of a tile,
+  // warp w of it rows 16 w .. 16 w + 15 (the wgmma fragment rows)
+  regs_consumer();
+  const int wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int lrow = wg * 64 + w * 16;  // the warp's first row in the tile
+  const float* a0 = lnt + (size_t)(lrow + g) * ld;
+  const float* a1 = a0 + 8 * ld;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kRows + lrow;
+    // LN of the warp's 16 rows into its rows of the tile (D <= 256: at most
+    // 8 values a lane), rounded to T; four rows' loads in flight at a time
+    for (int r0 = 0; r0 < 16; r0 += 4) {
+      float v[4][8];
 #pragma unroll
-          for (int i = 0; i < NT1; ++i) {
-            typename MT::B fb;
-            MT::load_b(fb, ws + (kk + 8) * ldw1 + i * 8, ldw1, g, t);
-            MT::mma(hacc[1][i], fa, fb);
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int d = lane + 32 * i, gm = row0 + r0 + r;
+          v[r][i] = (d < D && gm < M) ? O::load(x + (size_t)gm * D + d) : 0.f;
+        }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s += v[r][i];
+        const float mu = warp_sum(s) / D;
+        float q = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (lane + 32 * i < D) q += (v[r][i] - mu) * (v[r][i] - mu);
+        const float rs = rsqrtf(warp_sum(q) / D + eps);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D)
+            lnt[(size_t)(lrow + r0 + r) * ld + d] =
+                O::round((v[r][i] - mu) * rs * lns[d] + lnb[d]);
+        }
+      }
+    }
+    __syncwarp();
+
+    float acc[kMaxSub][32];
+#pragma unroll
+    for (int n = 0; n < kMaxSub; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+
+    for (int c = 0; c < chunks; ++c) {
+      // ---- GEMM1: h = LN(x) W1[:, 64c : 64c + 64]
+      float h[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) h[i] = 0.f;
+      for (int s = 0; s < D / O::kK; ++s) {
+        uint32_t a[4][O::kFrag];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int k0 = s * O::kK + kk * O::kStep;
+          if constexpr (sizeof(T) == 4) {
+            O::frag(a[kk], a0[k0 + t], a1[k0 + t], a0[k0 + t + 4],
+                    a1[k0 + t + 4]);
+          } else {
+            a[kk][0] = pack_bf16(a0[k0 + 2 * t], a0[k0 + 2 * t + 1]);
+            a[kk][1] = pack_bf16(a1[k0 + 2 * t], a1[k0 + 2 * t + 1]);
+            a[kk][2] = pack_bf16(a0[k0 + 2 * t + 8], a0[k0 + 2 * t + 9]);
+            a[kk][3] = pack_bf16(a1[k0 + 2 * t + 8], a1[k0 + 2 * t + 9]);
+          }
+        }
+        const uint32_t b = ring.acquire();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) O::mma(h, a[kk], b + 32 * kk, kBoxBytes);
+        wgmma_commit();
+        wgmma_wait0();
+        hold(a);
+        ring.release(lane);
+      }
+      // bias, activation, rounding to T; h[4j + e] is row g + 8 (e / 2),
+      // hidden column 64c + 8j + 2t + e % 2
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(
+            b1 + c * 64 + 8 * j + 2 * t);
+        h[4 * j] = O::round(activate<ACT>(h[4 * j] + bb.x));
+        h[4 * j + 1] = O::round(activate<ACT>(h[4 * j + 1] + bb.y));
+        h[4 * j + 2] = O::round(activate<ACT>(h[4 * j + 2] + bb.x));
+        h[4 * j + 3] = O::round(activate<ACT>(h[4 * j + 3] + bb.y));
+      }
+      // ---- GEMM2: acc += h W2[64c : 64c + 64, :]
+#pragma unroll
+      for (int s = 0; s < 64 / O::kK; ++s) {
+        uint32_t a[4][O::kFrag];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (sizeof(T) == 4) {
+            // k-step j = 4s + kk takes the accumulator's n8 tile j; slot t
+            // holds hidden 8j + 2t, slot t + 4 hidden 8j + 2t + 1 (W2's
+            // planes are permuted to match)
+            const int j = 4 * s + kk;
+            O::frag(a[kk], h[4 * j], h[4 * j + 2], h[4 * j + 1],
+                    h[4 * j + 3]);
+          } else {
+            const int j = 2 * kk;  // k16 step kk: n8 tiles 2kk, 2kk + 1
+            a[kk][0] = pack_bf16(h[4 * j], h[4 * j + 1]);
+            a[kk][1] = pack_bf16(h[4 * j + 2], h[4 * j + 3]);
+            a[kk][2] = pack_bf16(h[4 * j + 4], h[4 * j + 5]);
+            a[kk][3] = pack_bf16(h[4 * j + 6], h[4 * j + 7]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kMaxSub; ++n) {
+          if (n < nsub) {
+            const uint32_t b = ring.acquire();
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              O::mma(acc[n], a[kk], b + 32 * kk, kBoxBytes);
+            wgmma_commit();
+            wgmma_wait0();
+            hold(a);
+            ring.release(lane);
           }
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < NT1; ++i) {
-      const int col = c1 + i * 8 + 2 * t;
-      const float bb0 = b1[jb + col], bb1 = b1[jb + col + 1];
-      float* hr = h_s + (wm * 16 + g) * ldh + col;
-      hr[0] = IO<T>::round(activate<ACT>(hacc[0][i][0] + hacc[1][i][0] + bb0));
-      hr[1] = IO<T>::round(activate<ACT>(hacc[0][i][1] + hacc[1][i][1] + bb1));
-      hr[8 * ldh] =
-          IO<T>::round(activate<ACT>(hacc[0][i][2] + hacc[1][i][2] + bb0));
-      hr[8 * ldh + 1] =
-          IO<T>::round(activate<ACT>(hacc[0][i][3] + hacc[1][i][3] + bb1));
-    }
 
-    // ---- GEMM2: acc += h @ W2[jb:jb+64, :], one k-step per chunk ----
-    for (int q = 0; q < 8; ++q, ++c) {
-      const T* ws = next_chunk() + c2;
-      typename MT::A fa[MT2];
+    // ---- epilogue: residual + gamma * (acc + b2)
 #pragma unroll
-      for (int mt = 0; mt < MT2; ++mt)
-        MT::load_a(fa[mt], h_s + mt * 16 * ldh + q * 8, ldh, g, t);
+    for (int n = 0; n < kMaxSub; ++n) {
+      if (n >= nsub) continue;
 #pragma unroll
-      for (int i = 0; i < NT2; ++i) {
-        if (i < nt2) {
-          typename MT::B fb;
-          MT::load_b(fb, ws + i * 8, ldw2, g, t);
+      for (int j = 0; j < 8; ++j) {
+        const int col = n * 64 + 8 * j + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+        const float2 gg = gamma ? *reinterpret_cast<const float2*>(gamma + col)
+                                : make_float2(1.f, 1.f);
 #pragma unroll
-          for (int mt = 0; mt < MT2; ++mt) MT::mma(acc[mt][i], fa[mt], fb);
+        for (int half = 0; half < 2; ++half) {
+          const int gm = row0 + g + 8 * half;
+          if (gm >= M) continue;
+          const size_t at = (size_t)gm * D + col;
+          const float2 rr = O::load2(res + at);
+          O::store2(out + at,
+                    rr.x + gg.x * (acc[n][4 * j + 2 * half] + bb.x),
+                    rr.y + gg.y * (acc[n][4 * j + 2 * half + 1] + bb.y));
         }
       }
     }
   }
-  cp_async_wait<0>();
+}
 
-  // ---- epilogue: residual + gamma * (acc + b2) ----
+// ---------------------------------------------------------------- route 2
+
+// Each row's LayerNorm mean and 1/std (two passes over the row), one warp
+// a row: phase 1 reads them once per tile row instead of recomputing them
+// for every column tile.
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln_stats(const T* __restrict__ x, int M, int D, float eps,
+         float2* __restrict__ stats) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * D;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s += Op<T>::load(xr + d);
+  const float mu = warp_sum(s) / D;
+  float q = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float c = Op<T>::load(xr + d) - mu;
+    q += c * c;
+  }
+  const float rs = rsqrtf(warp_sum(q) / D + eps);
+  if (lane == 0) stats[row] = make_float2(mu, rs);
+}
+
+// One phase of the two-phase route: C [M, N] = A [M, K] @ B, B from planes
+// [P][N][K] with K permuted within each slab (mode 2 of the split pass), so
+// that thread t's A values of a slab are the contiguous columns
+// [slab + 8t, slab + 8t + 8) (f32) or [slab + 16t, slab + 16t + 16) (bf16).
+// Output tiles are 128 rows x 64 * nsub columns.
+// PHASE1: A = LN(x) (each row's mean and 1/std from ln_stats), C = h =
+//         act(C + b1) in T.
+// else:   A = h, out = residual + gamma * (C + b2).
+template <typename T, int ACT, bool PHASE1>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_mlp_phase(const __grid_constant__ CUtensorMap bmap,
+             const T* __restrict__ A, const T* __restrict__ res,
+             const float* __restrict__ lns, const float* __restrict__ lnb,
+             const float* __restrict__ bias, const float* __restrict__ gamma,
+             const float2* __restrict__ stats, T* __restrict__ C, int M, int K,
+             int N, int nsub, int stages) {
+  using O = Op<T>;
+  extern __shared__ uint8_t smem[];
+  uint8_t* lead;
+  Ring ring = make_ring(smem, 0, stages, nsub * O::kPlanes * kBoxBytes, &lead);
+  const int mtiles = (M + kRows - 1) / kRows;
+  const int ntiles = N / (64 * nsub);
+  const int tiles = mtiles * ntiles;
+  const int slabs = K / O::kK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // phase 1 walks the row tiles of one weight slab together (the slab stays
+  // in L2); phase 2 the column tiles of one row tile (its rows of h do)
+  auto tile_mn = [&](int tile, int& m, int& n) {
+    if (PHASE1) {
+      m = tile % mtiles;
+      n = tile / mtiles;
+    } else {
+      m = tile / ntiles;
+      n = tile % ntiles;
+    }
+  };
+
+  if (warp >= kConsumers / 32) {  // ---- producer: one thread issues TMA
+    regs_producer();
+    if (warp == kConsumers / 32 && lane == 0) {
+      const uint32_t bytes = nsub * O::kPlanes * kBoxBytes;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m, n;
+        tile_mn(tile, m, n);
+        for (int s = 0; s < slabs; ++s) {
+          uint8_t* dst = ring.produce(bytes);
+          for (int p = 0; p < O::kPlanes; ++p)
+            for (int j = 0; j < nsub; ++j)
+              tma_load(dst + (p * nsub + j) * kBoxBytes, &bmap, s * O::kK,
+                       p * N + (n * nsub + j) * 64, &ring.full[ring.slot]);
+          ring.next();
+        }
+      }
+    }
+    return;
+  }
+
+  regs_consumer();
+  const int wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  constexpr int kV = 32 / sizeof(T);  // A values a row a slab: 32 bytes
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int m, n;
+    tile_mn(tile, m, n);
+    const int r0 = m * kRows + wg * 64 + w * 16;  // the warp's first row
+    const int rows[2] = {r0 + g, r0 + g + 8};
+    float2 st[2] = {make_float2(0.f, 1.f), make_float2(0.f, 1.f)};
+    if (PHASE1) {
 #pragma unroll
-  for (int i = 0; i < NT2; ++i) {
-    if (i >= nt2) continue;
-    const int n = c2 + i * 8 + 2 * t;
+      for (int h = 0; h < 2; ++h)
+        if (rows[h] < M) st[h] = stats[rows[h]];
+    }
+
+    float acc[kMaxSub][32];
 #pragma unroll
-    for (int r = 0; r < 2 * MT2; ++r) {  // rows r * 8 + g
-      const int gm = row0 + r * 8 + g;
-      if (gm >= M) continue;
+    for (int j = 0; j < kMaxSub; ++j)
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float o = acc[r / 2][i][2 * (r % 2) + q] + b2[n + q];
-        o = o * (gamma ? gamma[n + q] : 1.f);
-        const size_t at = (size_t)gm * D + n + q;
-        IO<T>::store(out + at, IO<T>::load(res + at) + o);
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+
+    // the thread's 32 bytes of each of its two rows in slab s, raw; the
+    // next slab's are loaded while this slab's products run
+    uint4 u[2][2];
+    auto fetch = [&](int s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            A + (size_t)rows[h] * K + s * O::kK + kV * t);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          u[h][q] = rows[h] < M ? __ldg(src + q) : make_uint4(0, 0, 0, 0);
+      }
+    };
+    fetch(0);
+    for (int s = 0; s < slabs; ++s) {
+      const int c0 = s * O::kK + kV * t;  // the thread's first column
+      float v[2][kV];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const uint32_t wds[4] = {u[h][q].x, u[h][q].y, u[h][q].z,
+                                   u[h][q].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (sizeof(T) == 4) {
+              v[h][4 * q + e] = __uint_as_float(wds[e]);
+            } else {
+              const float2 f = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&wds[e]));
+              v[h][8 * q + 2 * e] = f.x;
+              v[h][8 * q + 2 * e + 1] = f.y;
+            }
+          }
+        }
+      }
+      if (PHASE1) {
+#pragma unroll
+        for (int i = 0; i < kV; i += 4) {
+          const float4 sc = *reinterpret_cast<const float4*>(lns + c0 + i);
+          const float4 sh = *reinterpret_cast<const float4*>(lnb + c0 + i);
+          const float scv[4] = {sc.x, sc.y, sc.z, sc.w};
+          const float shv[4] = {sh.x, sh.y, sh.z, sh.w};
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[h][i + e] = rows[h] < M
+                                ? O::round((v[h][i + e] - st[h].x) * st[h].y *
+                                               scv[e] +
+                                           shv[e])
+                                : 0.f;
+        }
+      }
+      uint32_t a[4][O::kFrag];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (sizeof(T) == 4) {
+          // slot t <- column 8t + 2kk, slot t + 4 <- 8t + 2kk + 1
+          O::frag(a[kk], v[0][2 * kk], v[1][2 * kk], v[0][2 * kk + 1],
+                  v[1][2 * kk + 1]);
+        } else {
+          // slots 2t, 2t + 1 <- 16t + 4kk + {0, 1}; 2t + 8, 2t + 9 <- + {2, 3}
+          a[kk][0] = pack_bf16(v[0][4 * kk], v[0][4 * kk + 1]);
+          a[kk][1] = pack_bf16(v[1][4 * kk], v[1][4 * kk + 1]);
+          a[kk][2] = pack_bf16(v[0][4 * kk + 2], v[0][4 * kk + 3]);
+          a[kk][3] = pack_bf16(v[1][4 * kk + 2], v[1][4 * kk + 3]);
+        }
+      }
+      const uint32_t b = ring.acquire();
+      const uint32_t plane = nsub * kBoxBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kMaxSub; ++j) {
+        if (j < nsub) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            O::mma(acc[j], a[kk], b + j * kBoxBytes + 32 * kk, plane);
+        }
+      }
+      wgmma_commit();
+      if (s + 1 < slabs) fetch(s + 1);
+      wgmma_wait0();
+      hold(a);
+      ring.release(lane);
+    }
+
+    // ---- epilogue
+#pragma unroll
+    for (int j = 0; j < kMaxSub; ++j) {
+      if (j >= nsub) continue;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = (n * nsub + j) * 64 + 8 * q + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+        float2 gg = make_float2(1.f, 1.f);
+        if (!PHASE1 && gamma) gg = *reinterpret_cast<const float2*>(gamma + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (rows[h] >= M) continue;
+          const float c0v = acc[j][4 * q + 2 * h] + bb.x;
+          const float c1v = acc[j][4 * q + 2 * h + 1] + bb.y;
+          const size_t at = (size_t)rows[h] * N + col;
+          if (PHASE1) {
+            O::store2(C + at, activate<ACT>(c0v), activate<ACT>(c1v));
+          } else {
+            const float2 rr = O::load2(res + at);
+            O::store2(C + at, rr.x + gg.x * c0v, rr.y + gg.y * c1v);
+          }
+        }
       }
     }
   }
 }
 
-template <typename T, int TM, int ACT>
-int launch(const void* x, const void* res, const float* lns,
-           const float* lnb, const void* w1, const float* b1, const void* w2,
-           const float* b2, const float* gamma, void* out, int M, int D,
-           int H, float eps, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, TM>(D);
-  auto kernel = ln_mlp_kernel<T, TM, ACT>;
+// ---------------------------------------------------------------- split
+
+// Source K index of stored position p of a weight row (modes of the split
+// pass): 0 as it is; 1 the fused GEMM2's order (f32: within groups of 8,
+// position s < 4 holds 2s, s >= 4 holds 2(s - 4) + 1; bf16: as it is);
+// 2 the two-phase order (within slabs of 32 f32: position 8kk + s holds
+// 8(s % 4) + 2kk + s / 4; of 64 bf16: position 16kk + 8j + 2t + e holds
+// 16t + 4kk + 2j + e).
+__device__ __forceinline__ int src_k(int p, int mode, bool bf16) {
+  if (mode == 1 && !bf16) {
+    const int s = p & 7;
+    return (p & ~7) + (s < 4 ? 2 * s : 2 * (s - 4) + 1);
+  }
+  if (mode == 2 && !bf16) {
+    const int q = p & 31, kk = q >> 3, s = q & 7;
+    return (p & ~31) + 8 * (s & 3) + 2 * kk + (s >> 2);
+  }
+  if (mode == 2 && bf16) {
+    const int q = p & 63, kk = q >> 4, j = (q >> 3) & 1, t = (q >> 1) & 3,
+              e = q & 1;
+    return (p & ~63) + 16 * t + 4 * kk + 2 * j + e;
+  }
+  return p;
+}
+
+// planes[n][p] from src (n, src_k(p)) at src[n * sn + k * sk]: f32 out as
+// big / small planes [2][N][K] (big = v rounded to TF32, small = v - big
+// exactly, so big + small == v), bf16 out as one plane [N][K].
+template <typename S, bool BF16_OUT>
+__global__ void split_kernel(const S* __restrict__ src, long long sn,
+                             long long sk, int N, int K, int mode,
+                             void* __restrict__ planes) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)N * K) return;
+  const int n = (int)(i / K), p = (int)(i % K);
+  const float v = Op<S>::load(src + n * sn + (long long)src_k(p, mode, BF16_OUT) * sk);
+  if (BF16_OUT) {
+    static_cast<__nv_bfloat16*>(planes)[i] = __float2bfloat16(v);
+  } else {
+    const uint32_t big = tf32_bits(v);
+    float* f = static_cast<float*>(planes);
+    f[i] = __uint_as_float(big);
+    // the exact remainder: the tensor cores read its top 19 bits
+    f[(long long)N * K + i] = v - __uint_as_float(big);
+  }
+}
+
+// ---------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map over planes [rows][K] (rows = P * N) with 64-row boxes of 128 bytes
+bool plane_map(CUtensorMap* map, void* planes, bool bf16, int rows, int K) {
+  EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const int esize = bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)kBox};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map,
+             bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             2, planes, dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 132;
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem, int tiles, int* grid) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (M + TM - 1) / TM;
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), lns, lnb,
-      static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2, gamma,
-      static_cast<T*>(out), M, D, H, eps);
-  return static_cast<int>(cudaGetLastError());
+  *grid = tiles < sm_count() ? tiles : sm_count();
+  return err;
 }
 
 template <typename T, int ACT>
-int dispatch_tm(int tm, const void* x, const void* res, const float* lns,
-                const float* lnb, const void* w1, const float* b1,
-                const void* w2, const float* b2, const float* gamma,
-                void* out, int M, int D, int H, float eps,
-                cudaStream_t stream) {
-  if (tm == 64)
-    return launch<T, 64, ACT>(x, res, lns, lnb, w1, b1, w2, b2, gamma, out,
-                              M, D, H, eps, stream);
-  if (tm == 32)
-    return launch<T, 32, ACT>(x, res, lns, lnb, w1, b1, w2, b2, gamma, out,
-                              M, D, H, eps, stream);
-  return launch<T, 16, ACT>(x, res, lns, lnb, w1, b1, w2, b2, gamma, out, M,
-                            D, H, eps, stream);
+int run(const void* x, const void* res, const float* lns, const float* lnb,
+        void* planes1, const float* b1, void* planes2, const float* b2,
+        const float* gamma, void* out, void* hidden, void* stats, int M,
+        int D, int H, float eps, cudaStream_t stream) {
+  using O = Op<T>;
+  const bool bf16 = sizeof(T) == 2;
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(res);
+  T* ot = static_cast<T*>(out);
+  CUtensorMap m1, m2;
+  if (!plane_map(&m1, planes1, bf16, O::kPlanes * H, D) ||
+      !plane_map(&m2, planes2, bf16, O::kPlanes * D, H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  cudaError_t err;
+  if (D <= 256) {
+    const size_t lead = (size_t)kRows * (D + kLnPad) * sizeof(float);
+    const int stage = O::kPlanes * kBoxBytes;
+    const int S = stages_for(lead, stage);
+    const size_t smem = smem_total(lead, S, stage);
+    auto kernel = ln_mlp_fused<T, ACT>;
+    err = prepare(kernel, smem, (M + kRows - 1) / kRows, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, smem, stream>>>(m1, m2, xt, rt, lns, lnb, b1, b2,
+                                             gamma, ot, M, D, H, eps, S);
+    return static_cast<int>(cudaGetLastError());
+  }
+  T* ht = static_cast<T*>(hidden);
+  float2* st = static_cast<float2*>(stats);
+  const int mtiles = (M + kRows - 1) / kRows;
+  auto nsub_for = [](int n) { return n % 256 == 0 ? 4 : n % 128 == 0 ? 2 : 1; };
+  {
+    const int nsub = nsub_for(H);
+    const int stage = nsub * O::kPlanes * kBoxBytes;
+    const int S = stages_for(0, stage);
+    const size_t smem = smem_total(0, S, stage);
+    auto kernel = ln_mlp_phase<T, ACT, true>;
+    err = prepare(kernel, smem, mtiles * (H / (64 * nsub)), &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ln_stats<T><<<(M + 7) / 8, 256, 0, stream>>>(xt, M, D, eps, st);
+    kernel<<<grid, kThreads, smem, stream>>>(m1, xt, nullptr, lns, lnb, b1,
+                                             nullptr, st, ht, M, D, H, nsub,
+                                             S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int nsub = nsub_for(D);
+  const int stage = nsub * O::kPlanes * kBoxBytes;
+  const int S = stages_for(0, stage);
+  const size_t smem = smem_total(0, S, stage);
+  auto kernel = ln_mlp_phase<T, 0, false>;
+  err = prepare(kernel, smem, mtiles * (D / (64 * nsub)), &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, stream>>>(m2, ht, rt, nullptr, nullptr, b2,
+                                           gamma, nullptr, ot, M, H, D, nsub,
+                                           S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The row tile for width D: the largest of 64 / 32 / 16 with TM * D <= 24576
-// (0 when D is out of range). The wrapper asks before it launches.
-extern "C" int sai_ln_mlp_row_tile(int D) {
-  if (D <= 0 || D % 64 != 0) return 0;
-  if (D <= 384) return 64;
-  if (D <= 768) return 32;
-  if (D <= 1536) return 16;
-  return 0;
+// 1 = fused (D <= 256), 2 = two phases (D > 256), 0 = not supported: D a
+// multiple of 64 up to 1536, H a multiple of 64. The wrapper asks before it
+// splits the weights (the route decides their order).
+extern "C" int sai_ln_mlp_route(int D, int H) {
+  if (D <= 0 || D % 64 != 0 || D > 1536 || H <= 0 || H % 64 != 0) return 0;
+  return D <= 256 ? 1 : 2;
 }
 
-// dtype 0 = f32, 1 = bf16 (x, residual, w1, w2, out); act 0 = quick_gelu,
-// 1 = exact gelu. lns, lnb, b1, b2, gamma are f32; gamma may be NULL (ones).
-// x, residual, out [M, D]; w1 [D, H]; w2 [H, D]; all contiguous, D % 64 == 0,
-// H % 64 == 0. Returns a cudaError_t (0 on success).
+// The split pass: planes from a weight with element (n, k) at
+// src[n * sn + k * sk] (src_bf16: bf16, else f32), N rows of K; out_bf16:
+// one bf16 plane [N][K], else big / small TF32 planes [2][N][K] (f32);
+// mode as src_k. Returns a cudaError_t.
+extern "C" int sai_ln_mlp_split(const void* src, int src_bf16, long long sn,
+                                long long sk, int N, int K, int out_bf16,
+                                int mode, void* planes, void* stream) {
+  const long long n = (long long)N * K;
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (src_bf16) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(src);
+    if (out_bf16)
+      split_kernel<__nv_bfloat16, true><<<blocks, threads, 0, s>>>(
+          p, sn, sk, N, K, mode, planes);
+    else
+      split_kernel<__nv_bfloat16, false><<<blocks, threads, 0, s>>>(
+          p, sn, sk, N, K, mode, planes);
+  } else {
+    const float* p = static_cast<const float*>(src);
+    if (out_bf16)
+      split_kernel<float, true><<<blocks, threads, 0, s>>>(p, sn, sk, N, K,
+                                                           mode, planes);
+    else
+      split_kernel<float, false><<<blocks, threads, 0, s>>>(p, sn, sk, N, K,
+                                                            mode, planes);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype 0 = f32, 1 = bf16 (x, residual, out, hidden; planes as the split
+// pass made them for this dtype and route: route 1 W1 mode 0 and W2 mode
+// 1, route 2 both mode 2); act 0 = quick_gelu, 1 = exact gelu. planes1
+// from W1 as [H, D] (N = H, K = D), planes2 from W2 as [D, H]. lns, lnb,
+// b1, b2, gamma f32 (gamma may be NULL: ones). x, residual, out [M, D]
+// contiguous; hidden [M, H] (T) and stats [M, 2] (f32) scratch for route 2
+// (NULL for route 1).
+// Returns a cudaError_t (0 on success).
 extern "C" int sai_ln_mlp(int dtype, int act, const void* x, const void* res,
-                          const float* lns, const float* lnb, const void* w1,
-                          const float* b1, const void* w2, const float* b2,
-                          const float* gamma, void* out, int M, int D, int H,
-                          float eps, void* stream) {
-  const int tm = sai_ln_mlp_row_tile(D);
-  if (tm == 0 || H % kTH != 0)
+                          const float* lns, const float* lnb, void* planes1,
+                          const float* b1, void* planes2, const float* b2,
+                          const float* gamma, void* out, void* hidden,
+                          void* stats, int M, int D, int H, float eps,
+                          void* stream) {
+  const int route = sai_ln_mlp_route(D, H);
+  if (route == 0 || (route == 2 && (hidden == nullptr || stats == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return act == 0
-               ? dispatch_tm<float, 0>(tm, x, res, lns, lnb, w1, b1, w2, b2,
-                                       gamma, out, M, D, H, eps, s)
-               : dispatch_tm<float, 1>(tm, x, res, lns, lnb, w1, b1, w2, b2,
-                                       gamma, out, M, D, H, eps, s);
-  }
-  return act == 0 ? dispatch_tm<__nv_bfloat16, 0>(tm, x, res, lns, lnb, w1,
-                                                  b1, w2, b2, gamma, out, M,
-                                                  D, H, eps, s)
-                  : dispatch_tm<__nv_bfloat16, 1>(tm, x, res, lns, lnb, w1,
-                                                  b1, w2, b2, gamma, out, M,
-                                                  D, H, eps, s);
+  if (dtype == 0)
+    return act == 0 ? run<float, 0>(x, res, lns, lnb, planes1, b1, planes2, b2,
+                                    gamma, out, hidden, stats, M, D, H, eps, s)
+                    : run<float, 1>(x, res, lns, lnb, planes1, b1, planes2, b2,
+                                    gamma, out, hidden, stats, M, D, H, eps, s);
+  return act == 0
+             ? run<__nv_bfloat16, 0>(x, res, lns, lnb, planes1, b1, planes2,
+                                     b2, gamma, out, hidden, stats, M, D, H, eps, s)
+             : run<__nv_bfloat16, 1>(x, res, lns, lnb, planes1, b1, planes2,
+                                     b2, gamma, out, hidden, stats, M, D, H, eps, s);
 }

@@ -101,6 +101,7 @@ def test_splat_kernel_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("act,eps,with_gamma,dtype,D,M", [
     ("quick_gelu", 1e-5, False, torch.float32, 512, 77),   # CLIP text
+    ("quick_gelu", 1e-5, False, torch.bfloat16, 768, 200),  # CLIP vision
     ("quick_gelu", 1e-5, False, torch.float32, 64, 131),   # tiny CLIP
     ("gelu", 1e-6, True, torch.float32, 192, 45),          # ConvNeXt
     ("gelu", 1e-6, True, torch.bfloat16, 384, 45),
@@ -121,6 +122,57 @@ def test_ln_mlp_kernel_on_card(act, eps, with_gamma, dtype, D, M):
     torch.testing.assert_close(got.float(),
                                L.ln_mlp_plain(*args, act=act, eps=eps).float(),
                                atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["linear_view", "contiguous"])
+@pytest.mark.parametrize("act,eps,with_gamma", [
+    ("gelu", 1e-6, True), ("quick_gelu", 1e-5, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [128, 384])   # route 1 (fused), route 2
+def test_ln_mlp_routes_on_card(D, dtype, act, eps, with_gamma, layout):
+    """Both routes against the plain version at ragged M (1, 45, 129,
+    1003), with the weights as the callers hold them (nn.Linear weights
+    transposed, `fc.weight.t()`) and as contiguous [D, H] / [H, D];
+    tolerances as test_ln_mlp_kernel_on_card. One count per call."""
+    dev = _card()
+    assert L.route(D, 4 * D) == (1 if D <= 256 else 2)
+    for M in (1, 45, 129, 1003):
+        args = [None if a is None else a.to(dev)
+                for a in _mlp_inputs(M, D, with_gamma,
+                                     np.random.default_rng(M))]
+        args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+        if layout == "linear_view":
+            args[4] = args[4].t().contiguous().t()
+            args[6] = args[6].t().contiguous().t()
+            assert not args[4].is_contiguous()
+        n0 = L.launches
+        got = L.fused_ln_mlp(*args, act=act, eps=eps)
+        assert L.launches == n0 + 1 and got.dtype == dtype
+        atol, rtol = (3e-4, 0.0) if dtype == torch.float32 else (3e-2, 2e-2)
+        torch.testing.assert_close(
+            got.float(), L.ln_mlp_plain(*args, act=act, eps=eps).float(),
+            atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_ln_mlp_split_pass_on_card(mode):
+    """The split pass: big + small == w exactly, big's low 13 mantissa
+    bits zero, in the order `plane_order` gives; bf16 the rounded weight in
+    that order. From a transposed view, as the callers pass weights."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.normal(size=(192, 256)).astype(np.float32))
+    w = w.to(dev).t()                                  # [256, 192] view
+    order = torch.from_numpy(L.plane_order(192, mode, False)).to(dev)
+    planes = L.weight_planes(w, torch.float32, mode)
+    big, small = planes[0], planes[1]
+    assert torch.equal(big + small, w[:, order])
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    order = torch.from_numpy(L.plane_order(192, mode, True)).to(dev)
+    assert torch.equal(L.weight_planes(w, torch.bfloat16, mode),
+                       w[:, order].to(torch.bfloat16))
 
 
 def _paint_inputs(F, N, h, w, rng):

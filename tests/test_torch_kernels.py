@@ -147,5 +147,78 @@ def test_ln_mlp_wrapper_checks():
     with pytest.raises(ValueError):
         L.fused_ln_mlp(t["x"], t["res"], t["lns"], t["lnb"], t["w1"],
                        t["b1"], t["w2"], t["b2"], act="relu")
-    assert [L.row_tile(d) for d in (64, 384, 512, 768, 1536, 100, 2048)] \
-        == [64, 64, 32, 32, 16, 0, 0]
+    assert [L.route(d, 4 * d) for d in (64, 256, 320, 768, 1536, 100,
+                                         2048)] == [1, 1, 2, 2, 2, 0, 0]
+    assert (L.route(256, 1000), L.route(256, 64)) == (0, 1)
+    assert L.PLANE_MODES == {1: (0, 1), 2: (2, 2)}
+
+
+def test_ln_mlp_takes_the_callers_weight_layout():
+    """nn.Linear weights passed transposed (`fc.weight.t()`, as the ConvNeXt
+    block and the CLIP MLP pass them) give the same result as contiguous
+    [D, H] / [H, D] weights, with no copy made by the caller."""
+    p = _mlp_inputs(33, 128, 512, True, RNG)
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    fc1 = torch.nn.Linear(128, 512)
+    fc2 = torch.nn.Linear(512, 128)
+    with torch.no_grad():
+        fc1.weight.copy_(t["w1"].T)
+        fc2.weight.copy_(t["w2"].T)
+    args = (t["x"], t["res"], t["lns"], t["lnb"])
+    via_view = L.fused_ln_mlp(*args, fc1.weight.t(), t["b1"], fc2.weight.t(),
+                              t["b2"], t["gamma"], act="gelu", eps=1e-6)
+    contiguous = L.fused_ln_mlp(*args, t["w1"], t["b1"], t["w2"], t["b2"],
+                                t["gamma"], act="gelu", eps=1e-6)
+    assert torch.equal(via_view, contiguous)
+
+
+# The A-register slots the kernels fill for thread column group t (t = lane
+# % 4) at k-step kk of a slab, as a source column of the slab (route 2) or
+# of the 64-wide hidden chunk (route 1, from the GEMM1 accumulator, whose
+# n8 tile j holds columns 8j + 2t and 8j + 2t + 1 of rows g and g + 8).
+# tf32 k8 steps have slots t (a0, a1) and t + 4 (a2, a3); bf16 k16 steps
+# slots 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3).
+_SLOT_RULES = {
+    # route 2, f32: thread t holds columns 8t .. 8t + 7 of the slab
+    ("phase", False): (32, 8, lambda kk, t: {t: 8 * t + 2 * kk,
+                                             t + 4: 8 * t + 2 * kk + 1}),
+    # route 2, bf16: thread t holds columns 16t .. 16t + 15
+    ("phase", True): (64, 16, lambda kk, t: {
+        2 * t: 16 * t + 4 * kk, 2 * t + 1: 16 * t + 4 * kk + 1,
+        2 * t + 8: 16 * t + 4 * kk + 2, 2 * t + 9: 16 * t + 4 * kk + 3}),
+    # route 1 GEMM2, f32: k-step j of the chunk takes accumulator tile j
+    ("fused", False): (64, 8, lambda kk, t: {t: 8 * kk + 2 * t,
+                                             t + 4: 8 * kk + 2 * t + 1}),
+    # route 1 GEMM2, bf16: k16 step kk takes tiles 2kk and 2kk + 1
+    ("fused", True): (64, 16, lambda kk, t: {
+        2 * t: 16 * kk + 2 * t, 2 * t + 1: 16 * kk + 2 * t + 1,
+        2 * t + 8: 16 * kk + 8 + 2 * t, 2 * t + 9: 16 * kk + 9 + 2 * t}),
+}
+
+
+@pytest.mark.parametrize("route,bf16", list(_SLOT_RULES))
+def test_plane_order_matches_the_kernels_fragments(route, bf16):
+    """A numpy walk of the kernels' k-steps: the A slots each thread fills
+    (as the kernels fill them) times the weight planes in `plane_order`'s
+    order (the split pass's, mirrored) must give A @ W. This pins the K
+    permutation that lets route 2 read contiguous A columns and route 1
+    feed GEMM1's accumulator straight into GEMM2."""
+    slab, step, rule = _SLOT_RULES[(route, bf16)]
+    mode = {"phase": 2, "fused": 1}[route]
+    rng = np.random.default_rng(9)
+    K, N = 128, 16
+    a = rng.normal(size=(3, K))
+    w = rng.normal(size=(K, N))
+    stored = w[L.plane_order(K, mode, bf16)]        # plane row p, K-major
+    got = np.zeros((3, N))
+    for s0 in range(0, K, slab):
+        for kk in range(slab // step):
+            frag = np.zeros((3, step))
+            filled = set()
+            for t in range(4):
+                for slot, col in rule(kk, t).items():
+                    frag[:, slot] = a[:, s0 + col]
+                    filled.add(slot)
+            assert filled == set(range(step))
+            got += frag @ stored[s0 + kk * step:s0 + (kk + 1) * step]
+    np.testing.assert_allclose(got, a @ w, rtol=1e-12, atol=1e-12)

@@ -122,34 +122,57 @@ def fresh_jax_programs(monkeypatch):
         jax.config.update("jax_enable_compilation_cache", was)
 
 
+def _convnext_block_params(x, rng):
+    """Parameters of a D=64 JAX ConvNeXt block made with numpy: the tree's
+    shapes from jax.eval_shape (which traces and runs no program), values at
+    flax's initial scales (kernels N(0, 1/fan_in)) with biases, LN affine
+    and the layer scale moved off their initial values."""
+    jblk = JC.ConvNeXtBlock(64, 1e-6, fused_mlp=True, shift_dwconv=False)
+    shapes = jax.eval_shape(jblk.init, jax.random.PRNGKey(1),
+                            jax.ShapeDtypeStruct(x.shape, jnp.float32))
+
+    def draw(path, leaf):
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        shape = leaf.shape
+        if name.endswith("kernel"):
+            scale = np.prod(shape[:-1]) ** -0.5
+        elif name.endswith("scale"):
+            return (1.0 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+        else:  # biases and gamma
+            scale = 0.1 if not name.endswith("gamma") else 1.0
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+
+    return jblk, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def test_convnext_block_matches_jax_fused(fresh_jax_programs):
     """D=64: B2's plain version vs the Pallas kernel in interpret mode,
     within 1e-4 of each other; each side within 1e-5 of a float64
-    evaluation (both read about 3e-6), so a drift names its side."""
+    evaluation (both read about 3e-6), so a drift names its side. The port
+    runs first, before any JAX program of this test has run (ROADMAP C9:
+    the port's side drifted in a few processes and read right when
+    recomputed later in the same process)."""
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 9, 11, 64)).astype(np.float32)
-    jblk = JC.ConvNeXtBlock(64, 1e-6, fused_mlp=True, shift_dwconv=False)
-    # np.array copies: JAX's buffers and torch's tensors share no memory
-    v = jax.tree_util.tree_map(
-        np.array, jblk.init(jax.random.PRNGKey(1), jnp.asarray(x)))
-    v["params"]["gamma"] = rng.normal(size=64).astype(np.float32)
-    want = np.array(jblk.apply(v, jnp.asarray(x)))
+    jblk, v = _convnext_block_params(x, rng)
     p = v["params"]
     blk = TC.ConvNeXtBlock(64)
     blk.load_state_dict({
         "dwconv.weight": torch.from_numpy(
             p["dwconv"]["kernel"].transpose(3, 2, 0, 1).copy()),
-        "dwconv.bias": torch.from_numpy(p["dwconv"]["bias"]),
-        "norm.weight": torch.from_numpy(p["norm"]["scale"]),
-        "norm.bias": torch.from_numpy(p["norm"]["bias"]),
+        "dwconv.bias": torch.from_numpy(p["dwconv"]["bias"].copy()),
+        "norm.weight": torch.from_numpy(p["norm"]["scale"].copy()),
+        "norm.bias": torch.from_numpy(p["norm"]["bias"].copy()),
         "pwconv1.weight": torch.from_numpy(p["pwconv1"]["kernel"].T.copy()),
-        "pwconv1.bias": torch.from_numpy(p["pwconv1"]["bias"]),
+        "pwconv1.bias": torch.from_numpy(p["pwconv1"]["bias"].copy()),
         "pwconv2.weight": torch.from_numpy(p["pwconv2"]["kernel"].T.copy()),
-        "pwconv2.bias": torch.from_numpy(p["pwconv2"]["bias"]),
-        "gamma": torch.from_numpy(p["gamma"]),
+        "pwconv2.bias": torch.from_numpy(p["pwconv2"]["bias"].copy()),
+        "gamma": torch.from_numpy(p["gamma"].copy()),
     })
     with torch.no_grad():
-        got = blk(torch.from_numpy(x.copy())).numpy()
+        got = blk(torch.from_numpy(x.copy())).numpy().copy()
+    want = np.array(jblk.apply(jax.tree_util.tree_map(jnp.array, v),
+                               jnp.array(x)))
     ref = _convnext_block_f64(x, p)
     np.testing.assert_allclose(want, ref, atol=1e-5, rtol=0,
                                err_msg="JAX (Pallas interpret) vs float64")
