@@ -14,8 +14,12 @@ Phases, each printing one JSON line:
 2. kernels    each kernel against its plain PyTorch version on the card at
               the main paths' shapes: max abs error against the stated
               tolerance (B3, B4: equal), kernel ms (median of CUDA-event
-              timings after a warm-up), plain ms, a library call's ms where
-              one exists, and the bound (least time the card could take).
+              timings after a warm-up, the calls queued behind a device
+              sleep so that each reads device time, not launch cost), plain
+              ms, a library call's ms where one exists, and the bound (least
+              time the card could take). B3 also gives its three steps'
+              times (pack, resolve, stamp) and the longest chain of kept
+              steps in a frame; B4 its achieved bytes/s.
 3. crosscheck the small synthetic path (96x72, 8 frames, 0.06 m voxels, tiny
               CLIP) on the CPU (plain versions) and on the card (kernels):
               integer accumulators must agree exactly, tsdf / rgb within
@@ -56,8 +60,9 @@ Phases, each printing one JSON line:
               per chunk.
 9. profile    the kMaX path's fuse_scan (the first path's without
               path_kmax) once more under torch.profiler: device time by
-              kernel and the device's busy time, as a share of the profiled
-              wall and of the unprofiled fuse_scan.
+              kernel, each port kernel's (B1-B4) device time and launches,
+              and the device's busy time, as a share of the profiled wall
+              and of the unprofiled fuse_scan.
 
 Then a JSON line {"kernels": [...]} with each kernel's numbers, the card's
 name and power limit from nvidia-smi, and, last, the device line. Any
@@ -88,6 +93,18 @@ MLP_REPLACES = "spatially_aware_ai_tpu/models/pallas_mlp.py:222"
 PAINT_REPLACES = "spatially_aware_ai_tpu/models/kmax/pallas_paint.py:137"
 TILE_REPLACES = "spatially_aware_ai_tpu/grid/pallas_tiledma.py:196"
 
+# a device sleep (in clock cycles, about 5 ms) ahead of the timed calls: the
+# host queues them all while the card sleeps, so the events read the card's
+# time per call and not the host's time to launch it
+SLEEP_CYCLES = 10_000_000
+
+# kernel names of each port kernel in a profiler trace
+PORT_KERNELS = {"feature_splat": ("splat_kernel",),
+                "ln_mlp": ("ln_mlp_fused", "ln_mlp_phase", "ln_stats",
+                           "split_kernel"),
+                "paint_masks": ("paint_",),
+                "tile_sample": ("tile_sample_kernel",)}
+
 # random kMaX weights paint nothing (class scores stay under 0.5, cosine
 # mask logits in [-1, 1] under the 0.4 pixel threshold): the kMaX phases
 # scale the class head and the mask-logit BN by these factors
@@ -100,12 +117,14 @@ def emit(obj):
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
-    """Median CUDA-event time of fn() in ms, after a warm-up."""
+    """Median CUDA-event time of fn() in ms, after a warm-up, with the calls
+    queued behind a device sleep (SLEEP_CYCLES)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     pairs = []
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
@@ -445,11 +464,39 @@ def _paint_inputs(gen, dev, F=8, N=128, h=241, w=321):
             keep.gather(1, order).int())
 
 
+def _paint_step_ms(probs, order, keep, kw, warmup: int = 3,
+                   iters: int = 15):
+    """Median device times of B3's three launches (pack, resolve, stamp),
+    from CUDA events recorded between them, queued as in time_ms."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models.kmax import paint as P
+
+    F, N, h, w = probs.shape
+    claim = torch.empty((F, h, w), dtype=torch.int32, device=probs.device)
+    accepted = torch.empty((F, N), dtype=torch.bool, device=probs.device)
+    args = (probs, order, keep, claim, accepted, kw["overlap_threshold"],
+            kw["pixel_threshold"])
+    for _ in range(warmup):
+        P._launch(*args)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+             for _ in range(iters)]
+    for m in marks:
+        P._launch(*args, marks=m)
+    torch.cuda.synchronize()
+    return {f"{step}_ms": statistics.median(m[i].elapsed_time(m[i + 1])
+                                            for m in marks)
+            for i, step in enumerate(("pack", "resolve", "stamp"))}
+
+
 def _paint_check(gen, dev, checks, report):
     """B3 at the kMaX path's shape (F=8, N=128, 241x321): the claims and
     the accepted flags must equal the plain version's. The bound counts the
     planes this data needs (keep == 0 steps are skipped), the claim map,
-    the accepted flags and order / keep."""
+    the accepted flags and order / keep. The longest chain of kept steps
+    in a frame sets the resolve step's latency floor."""
     import torch
 
     from spatially_aware_ai_tpu_torch.models.kmax import paint as P
@@ -468,21 +515,34 @@ def _paint_check(gen, dev, checks, report):
     nbytes = kept * h * w * 4 + F * h * w * 4 + 2 * F * N * 4 + F * N
     bound_ms, bound_by = _bound(nbytes, 0.0, PEAK_F32)
     ms = time_ms(lambda: P.paint_masks(probs, order, keep, **kw))
+    steps = _paint_step_ms(probs, order, keep, kw)
     plain_ms = time_ms(lambda: P.paint_masks_plain(probs, order, keep, **kw))
+    # the same planes at thresholds where masks overlap and most kept steps
+    # are rejected between accepted ones (the resolve step restarts at each
+    # change of outcome)
+    kw_rej = dict(overlap_threshold=0.95, pixel_threshold=0.1)
+    got_rej = P.paint_masks(probs, order, keep, **kw_rej)
+    want_rej = P.paint_masks_plain(probs, order, keep, **kw_rej)
+    equal &= all(torch.equal(a, b) for a, b in zip(got_rej, want_rej))
+    rejecting = {"thresholds": kw_rej,
+                 "accepted": int(want_rej[1].sum()),
+                 **_paint_step_ms(probs, order, keep, kw_rej)}
     good = equal and semantics
     checks.append({
         "kernel": "paint_masks", "F": F, "N": N, "h": h, "w": w,
-        "kept_queries": kept, "accepted": int(got_acc.sum()),
+        "kept_queries": kept,
+        "longest_kept_chain": int((keep != 0).sum(1).max()),
+        "accepted": int(got_acc.sum()), "rejecting": rejecting,
         "claimed_share": float((got >= 0).float().mean()),
         "equal": equal, "max_abs_err": err, "hand_frame_ok": semantics,
-        "ok": good, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ok": good, "ms": ms, **steps, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_ms_every_plane": (F * N * h * w * 4 + F * h * w * 4)
         / PEAK_BYTES * 1e3})
     report["paint_masks"] = {
         "name": "paint_masks", "route": "cuda",
         "source": "spatially_aware_ai_tpu_torch/csrc/paint_masks.cu",
-        "replaces": PAINT_REPLACES, "max_abs_err": err, "ms": ms,
+        "replaces": PAINT_REPLACES, "max_abs_err": err, "ms": ms, **steps,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}
     return good
@@ -529,7 +589,8 @@ def _tile_check(dev, checks, report):
     """B4 at the probe's shape (392 bricks of 512 voxels, F=8, C=2,
     768x1024, 256x256 tiles): samples and in_tile equal to the plain
     version's. The bound counts uv, bbox, the outputs and each distinct
-    in-tile pixel's C channels once; the library yardstick is one
+    in-tile pixel's C channels once; beside it, the same with each distinct
+    32-byte image sector the pixels lie in. The library yardstick is one
     torch.gather of the same pixels (no tile mask)."""
     import torch
 
@@ -560,13 +621,23 @@ def _tile_check(dev, checks, report):
     nbytes = (uv.numel() * 4 + bbox.numel() * 4 + got[0].numel() * 4
               + got[1].numel() + needed * C * 4)
     bound_ms, bound_by = _bound(nbytes, 0.0, PEAK_F32)
+    # what the gathers move from memory: a distinct 32-byte sector of the
+    # image per read pixel, nearly one per in-tile voxel and channel
+    base = ((frame * C * H + py) * W + px)[in_tile]
+    sectors = torch.unique(torch.cat([(base + c * H * W) // 8
+                                      for c in range(C)])).numel()
+    sector_bytes = nbytes - needed * C * 4 + sectors * 32
     checks.append({
         "kernel": "tile_sample", "NB": NB, "F": F, "C": C, "H": H, "W": W,
         "V": V, "tile": list(tile), "in_tile_share": float(
             in_tile.float().mean()), "distinct_pixels": needed,
         "equal": equal, "max_abs_err": err, "ok": equal, "ms": ms,
         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "bytes": nbytes})
+        "bound_by": bound_by, "bytes": nbytes,
+        "achieved_bytes_per_s": nbytes / (ms * 1e-3),
+        "image_sectors": sectors, "sector_bytes": sector_bytes,
+        "sector_bound_ms": sector_bytes / PEAK_BYTES * 1e3,
+        "library_ms_over_ms": lib_ms / ms})
     report["tile_sample"] = {
         "name": "tile_sample", "route": "cuda",
         "source": "spatially_aware_ai_tpu_torch/csrc/tile_sample.cu",
@@ -982,6 +1053,7 @@ def phase_path_kmax(report):
     # what the segmenter painted on the first chunk (after the counts)
     rgbs = np.stack([ds[i].rgb for i in range(chunk)]).astype(np.float32)
     cat, segid = seg.run_on_batch_panoptic(rgbs)
+    paint_chunk0 = _paint_on_path(seg, rgbs)
     segments = [len(np.unique(s[s > 0])) for s in segid]
     n_chunks = -(-n_frames // chunk)
     blocks = sum(KM.KMAX_CONVNEXT_LARGE.backbone.depths)
@@ -1000,6 +1072,7 @@ def phase_path_kmax(report):
         "segments_per_frame": float(np.mean(segments)) >= 2,
         "launches": all(v > 0 for v in launches.values()),
         "paint_once_per_chunk": launches["paint_masks"] == n_chunks,
+        "paint_chunk0_equal": paint_chunk0["equal"],
         "ln_mlp_launches": launches["ln_mlp"] == expected_b2,
     }
     t = result.timings
@@ -1009,6 +1082,7 @@ def phase_path_kmax(report):
            "class_scale": KMAX_CLASS_SCALE, "mask_scale": KMAX_MASK_SCALE,
            "painted_share_chunk0": float((cat != KM.NULL_ID).mean()),
            "segments_per_frame_chunk0": segments,
+           "paint_chunk0": paint_chunk0,
            "labelled_voxels": int((result.values["class_id"] >= 0).sum()),
            "nvox": list(nvox), "vertices": int(len(mesh["verts_world"])),
            "objects": len(sk["unique_objects"]),
@@ -1023,6 +1097,39 @@ def phase_path_kmax(report):
         raise SystemExit(f"path_kmax phase failed: {checks}")
     return (lambda: fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
                               device=dev)), secs["fuse_scan_s"]
+
+
+def _paint_on_path(seg, rgbs):
+    """B3 on the inputs the path's segmenter gives it for one chunk (after
+    the launch counts are read): kept and accepted steps, the longest kept
+    chain, equality to the plain version, and its times."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models.kmax import model as KM
+    from spatially_aware_ai_tpu_torch.models.kmax import paint as P
+
+    with torch.inference_mode():
+        imgs = torch.as_tensor(rgbs, device=seg.device)
+        new_h, new_w, pad_h, pad_w = seg._test_shape(*imgs.shape[1:3])
+        cls, masks = seg.model(KM.prep_batch(imgs, new_h, new_w, pad_h,
+                                             pad_w))
+        masks = masks[:, :-(-new_h // 4), :-(-new_w // 4)]
+        _, _, keep, mask_probs, _, _, order = KM.query_stats(cls, masks,
+                                                             seg.cfg)
+        probs = mask_probs.permute(0, 3, 1, 2).contiguous()
+        keep = keep.gather(1, order).int()
+        order = order.int()
+        kw = dict(overlap_threshold=float(seg.cfg.overlap_threshold),
+                  pixel_threshold=float(seg.cfg.pixel_confidence_threshold))
+        got = P.paint_masks(probs, order, keep, **kw)
+        want = P.paint_masks_plain(probs, order, keep, **kw)
+        return {"shape": list(probs.shape), "kept_queries": int(keep.sum()),
+                "longest_kept_chain": int((keep != 0).sum(1).max()),
+                "accepted": int(want[1].sum()),
+                "equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+                "ms": time_ms(lambda: P.paint_masks(probs, order, keep,
+                                                    **kw)),
+                **_paint_step_ms(probs, order, keep, kw)}
 
 
 def phase_profile(name, run_path, unprofiled_s):
@@ -1055,12 +1162,18 @@ def phase_profile(name, run_path, unprofiled_s):
             busy_us += end - max(start, last)
             last = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    port = {}
+    for kernel, names in PORT_KERNELS.items():
+        hits = [v for k, v in by_name.items() if any(n in k for n in names)]
+        port[kernel] = {"ms": sum(v[0] for v in hits),
+                        "count": sum(v[1] for v in hits)}
     emit({"phase": "profile", "path": name, "wall_s": wall_s,
           "device_events": len(spans),
           "device_busy_s": busy_us / 1e6,
           "device_busy_share": busy_us / 1e6 / wall_s,
           "unprofiled_wall_s": unprofiled_s,
           "device_busy_share_unprofiled": busy_us / 1e6 / unprofiled_s,
+          "port_kernels": port,
           "top_kernels": [{"name": k[:100], "ms": v[0], "count": v[1]}
                           for k, v in top]})
 

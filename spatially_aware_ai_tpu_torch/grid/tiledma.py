@@ -183,8 +183,10 @@ def tile_sample_nearest(img, uv, bbox, tile_h: int = 256,
     if not (img.is_contiguous() and uv.is_contiguous()
             and bbox.is_contiguous()):
         raise ValueError("img, uv and bbox must be contiguous")
-    if NB * F * V >= 2 ** 40:
-        raise ValueError("too many voxels for one tile_sample launch")
+    if F > 65535 or H * W >= 2 ** 31:
+        raise ValueError(f"tile_sample kernel takes at most 65535 frames "
+                         f"(its grid's rows) and 2^31 pixels per plane, got "
+                         f"F={F}, {H}x{W}")
     samples = torch.empty((NB, F, C, V), dtype=torch.float32, device=dev)
     in_tile = torch.empty((NB, F, V), dtype=torch.bool, device=dev)
     return _launch(img, uv, bbox, samples, in_tile, tile_h, tile_w)

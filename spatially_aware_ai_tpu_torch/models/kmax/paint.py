@@ -9,11 +9,13 @@ pixels. The result is claim [F, h, w] int32, -1 where unclaimed, and
 accepted [F, N] bool in paint order (with overlap_threshold <= 0 a query
 can be accepted and paint nothing, so the claims do not say it).
 
-The CUDA kernel is csrc/paint_masks.cu. On CUDA tensors `paint_masks`
-launches it (or raises); on CPU tensors it runs `paint_masks_plain`, the
-claim-carrying loop of the JAX package's panoptic_inference_batch
-(model.py, the fori path), vectorised over frames. `launches` counts
-kernel launches.
+The CUDA kernel is csrc/paint_masks.cu: three launches (pack the kept
+planes into bits on every SM, resolve each frame's accept chain over the
+bits, stamp the claims on every SM), counted as one launch per call in
+`launches`. On CUDA tensors `paint_masks` launches it (or raises); on CPU
+tensors it runs `paint_masks_plain`, the claim-carrying loop of the JAX
+package's panoptic_inference_batch (model.py, the fori path), vectorised
+over frames.
 """
 from __future__ import annotations
 
@@ -24,15 +26,24 @@ import torch
 # launches of the CUDA kernel, for runs that check the path went through it
 launches = 0
 
-_SIGNATURES = {"sai_paint_masks": (ctypes.c_int, [
-    *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p])}
+_INT3 = [ctypes.c_int] * 3
+_SIGNATURES = {
+    "sai_paint_pack": (ctypes.c_int, [*[ctypes.c_void_p] * 5, *_INT3,
+                                      ctypes.c_float, ctypes.c_void_p]),
+    "sai_paint_resolve": (ctypes.c_int, [*[ctypes.c_void_p] * 5, *_INT3,
+                                         ctypes.c_float, ctypes.c_void_p]),
+    "sai_paint_stamp": (ctypes.c_int, [*[ctypes.c_void_p] * 3, *_INT3,
+                                       ctypes.c_void_p]),
+}
 
-# paint indices live in int8 shared memory on the card
+# the JAX contract's query count; the kernel builds its step lists with
+# four warps. Mirrors kMaxQueries in csrc/paint_masks.cu
 MAX_QUERIES = 128
-# h * w the kernel's claim map and per-thread bit registers hold; mirrors
-# kMaxPixels in csrc/paint_masks.cu
-MAX_PIXELS = 56 * 4 * 1024
+# h * w whose bits the resolve step's 256 threads hold in registers (7
+# chunks of 4 words each); mirrors kMaxPixels in csrc/paint_masks.cu
+MAX_PIXELS = 7 * 256 * 4 * 32
+# frames are the stamp step's grid rows
+MAX_FRAMES = 65535
 
 
 def _f32(value: float, device) -> torch.Tensor:
@@ -97,6 +108,9 @@ def paint_masks(mask_probs, order, keep, *, overlap_threshold: float,
     if h * w > MAX_PIXELS:
         raise ValueError(f"paint_masks kernel takes at most {MAX_PIXELS} "
                          f"pixels per map, got {h}x{w}")
+    if F > MAX_FRAMES:
+        raise ValueError(f"paint_masks kernel takes at most {MAX_FRAMES} "
+                         f"frames, got {F}")
     order = order.to(torch.int32).contiguous()
     keep = keep.to(torch.int32).contiguous()
     claim = torch.empty((F, h, w), dtype=torch.int32, device=dev)
@@ -106,16 +120,42 @@ def paint_masks(mask_probs, order, keep, *, overlap_threshold: float,
 
 
 def _launch(probs, order, keep, claim, accepted, overlap_threshold,
-            pixel_threshold):
+            pixel_threshold, marks=None):
+    """Pack, resolve and stamp on the current stream, with the workspace
+    (bits [F, N, 4 * ceil(hw / 128)], areas [F, N], accepted lists
+    [F, N + 1]) from torch.empty. marks: four CUDA events, recorded before
+    each step and after the last, for timing the steps apart."""
     global launches
     from ...native_cuda import check, load
 
-    fn = load("paint_masks", _SIGNATURES).sai_paint_masks
+    lib = load("paint_masks", _SIGNATURES)
     F, N, h, w = probs.shape
-    err = fn(probs.data_ptr(), order.data_ptr(), keep.data_ptr(),
-             claim.data_ptr(), accepted.data_ptr(), F, N, h * w,
-             float(overlap_threshold), float(pixel_threshold),
-             torch.cuda.current_stream().cuda_stream)
+    hw = h * w
+    dev = probs.device
+    # rows of ceil(hw / 32) words rounded up to 16 bytes
+    bits = torch.empty((F, N, 4 * -(-hw // 128)), dtype=torch.int32,
+                       device=dev)
+    area = torch.empty((F, N), dtype=torch.int32, device=dev)
+    acc_list = torch.empty((F, N + 1), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    steps = (
+        ("pack", lambda: lib.sai_paint_pack(
+            probs.data_ptr(), order.data_ptr(), keep.data_ptr(),
+            bits.data_ptr(), area.data_ptr(), F, N, hw,
+            float(pixel_threshold), stream)),
+        ("resolve", lambda: lib.sai_paint_resolve(
+            bits.data_ptr(), area.data_ptr(), keep.data_ptr(),
+            accepted.data_ptr(), acc_list.data_ptr(), F, N, hw,
+            float(overlap_threshold), stream)),
+        ("stamp", lambda: lib.sai_paint_stamp(
+            bits.data_ptr(), acc_list.data_ptr(), claim.data_ptr(), F, N, hw,
+            stream)),
+    )
     launches += 1
-    check(err, "paint_masks")
+    for i, (name, step) in enumerate(steps):
+        if marks is not None:
+            marks[i].record()
+        check(step(), f"paint_masks {name}")
+    if marks is not None:
+        marks[-1].record()
     return claim, accepted

@@ -197,12 +197,16 @@ def test_paint_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.cuda
-def test_paint_kernel_on_card():
-    """F=2, N=128, 61x83 (planes not 16-byte aligned): the claims and the
-    accepted flags equal the plain version's exactly; one count per
-    launch."""
+@pytest.mark.parametrize("F,N,h,w", [
+    (2, 128, 61, 83),     # planes not 16-byte aligned, hw % 32 == 11
+    (8, 128, 241, 321),   # the kMaX path's shape
+    (3, 16, 61, 83),      # few queries
+])
+def test_paint_kernel_on_card(F, N, h, w):
+    """The claims and the accepted flags equal the plain version's exactly;
+    one count per call (three launches)."""
     dev = _card()
-    args = [a.to(dev) for a in _paint_inputs(2, 128, 61, 83,
+    args = [a.to(dev) for a in _paint_inputs(F, N, h, w,
                                              np.random.default_rng(4))]
     kw = dict(overlap_threshold=0.8, pixel_threshold=0.4)
     n0 = P.launches
@@ -212,6 +216,43 @@ def test_paint_kernel_on_card():
     want = P.paint_masks_plain(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (want[0] >= 0).any() and (want[0] < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap,pixel", [(0.8, 0.4), (0.0, 0.4),
+                                           (0.0, 0.0), (0.95, 0.1),
+                                           (0.5, 0.05)])
+def test_paint_kernel_on_card_void_frame_and_thresholds(overlap, pixel):
+    """Frame 1 keeps no query; in frame 2 the second query painted lies
+    wholly under the first, so at overlap 0 it is accepted and paints
+    nothing. At (0.95, 0.1) and (0.5, 0.05) the masks overlap and most
+    kept steps are rejected between accepted ones (the resolve step
+    restarts at each change of outcome). Claims and accepted flags equal
+    the plain version's exactly; one count per call."""
+    dev = _card()
+    probs, order, keep = _paint_inputs(3, 128, 61, 83,
+                                       np.random.default_rng(9))
+    keep[1] = 0
+    over, under = order[2, 0], order[2, 1]
+    probs[2, over, :10, :10] = 0.9
+    probs[2, under] = probs[2, over] * 0.99
+    keep[2, :2] = 1
+    args = [a.to(dev) for a in (probs, order, keep)]
+    kw = dict(overlap_threshold=overlap, pixel_threshold=pixel)
+    n0 = P.launches
+    got = P.paint_masks(*args, **kw)
+    torch.cuda.synchronize()
+    assert P.launches == n0 + 1
+    want = P.paint_masks_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (want[0][1] < 0).all() and not want[1][1].any()
+    if overlap > 0.9:
+        assert (want[1] == 0).sum() > 2 * want[1].sum()
+    if overlap == 0.0:
+        painted = torch.zeros_like(want[1])
+        for f in range(3):
+            painted[f, want[0][f][want[0][f] >= 0].unique().long()] = True
+        assert (want[1] & ~painted).any()
 
 
 @pytest.mark.cuda
@@ -271,6 +312,7 @@ def _tile_inputs(NB, F, C, H, W, V, tile_h, tile_w, rng):
 @pytest.mark.parametrize("NB,F,C,H,W,V,tile", [
     (7, 3, 2, 100, 300, 64, (64, 128)),         # small, ragged image
     (392, 8, 2, 768, 1024, 512, (256, 256)),    # the probe's shape
+    (11, 3, 3, 100, 300, 63, (64, 128)),        # rows not 16-byte aligned
 ])
 def test_tile_sample_kernel_on_card(NB, F, C, H, W, V, tile):
     """Samples and in_tile equal the plain version's exactly; one count per

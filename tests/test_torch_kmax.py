@@ -355,6 +355,171 @@ def test_paint_plain_matches_jax_kernel_on_hand_built_frames():
     assert (got[0, :, 20:22] < 0).all() and (got[1] < 0).all()
 
 
+def _pack_model(probs, order, keep, pixel_threshold):
+    """Numpy model of B3's pack step (csrc/paint_masks.cu): the kept steps'
+    masks as bits [F, N, nwp] uint32 in paint order, bit i of word k the
+    pixel 32k + i, zero past the last pixel (the ragged tail word and the
+    padding of each row to 4 words); steps with keep 0 stay 0 (the kernel
+    never writes or reads them); area [F, N] int32, the popcount of each
+    step's words."""
+    F, N, h, w = probs.shape
+    hw = h * w
+    nwp = 4 * -(-hw // 128)
+    planes = probs.reshape(F, N, hw)[np.arange(F)[:, None], order]
+    m = (planes > np.float32(pixel_threshold)) & (keep[..., None] != 0)
+    padded = np.zeros((F, N, nwp * 32), bool)
+    padded[..., :hw] = m
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    bits = (padded.reshape(F, N, nwp, 32) * weights).sum(-1).astype(
+        np.uint32)
+    area = np.bitwise_count(bits).sum(-1).astype(np.int32)
+    return bits, area
+
+
+_NEVER = 2 ** 31 - 1
+
+
+def _least_accepted(a, overlap_threshold):
+    """The resolve step's integer rule: the least |new| with
+    f32(|new|) / f32(max(a, 1)) >= threshold, found by binary search (the
+    division is monotone in |new|); a + 1 if none, _NEVER for a == 0."""
+    if a <= 0:
+        return _NEVER
+    lo, hi = 0, a + 1
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.float32(mid) / np.float32(a) >= np.float32(overlap_threshold):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def _paint_by_bits(probs, order, keep, *, overlap_threshold,
+                   pixel_threshold, group=4):
+    """B3's three steps in numpy. Pack; resolve, which walks each frame's
+    kept steps in groups of `group` rows, counting every row's |new| =
+    sum of popcount(bits & ~claimed) with the claimed mask grown by all the
+    rows before it or by none (the guess that they decide as the last
+    decided step did: accept, or reject), then deciding the rows in order
+    with the integer rule up to the first non-empty one that decides
+    otherwise and restarting after it with the guess flipped; stamp, the
+    first accepted step whose bit is set at each pixel."""
+    F, N, h, w = probs.shape
+    hw = h * w
+    bits, area = _pack_model(probs, order, keep, pixel_threshold)
+    accepted = np.zeros((F, N), bool)
+    claim = np.full((F, hw), -1, np.int32)
+    for f in range(F):
+        kept = np.flatnonzero(keep[f])
+        need = [_least_accepted(int(area[f, j]), overlap_threshold)
+                for j in kept]
+        claimed = np.zeros(bits.shape[-1], np.uint32)
+        guess = True
+        for g0 in range(0, len(kept), group):
+            g_end = min(len(kept), g0 + group)
+            q0 = g0
+            while q0 < g_end:
+                grown, counts = claimed.copy(), []
+                for q in range(q0, g_end):
+                    row = bits[f, kept[q]]
+                    counts.append(int(np.bitwise_count(row & ~grown).sum()))
+                    if guess:
+                        grown |= row
+                decided = g_end - q0
+                for i, n_new in enumerate(counts[:decided]):
+                    q = q0 + i
+                    accept = n_new >= need[q]
+                    if accept:
+                        accepted[f, kept[q]] = True
+                        claimed |= bits[f, kept[q]]
+                    if accept != guess and need[q] != _NEVER:
+                        decided, guess = i + 1, accept
+                        break
+                q0 += decided
+        steps = np.flatnonzero(accepted[f])
+        if len(steps):
+            word = bits[f, steps][:, np.arange(hw) // 32]
+            set_ = (word >> (np.arange(hw) % 32).astype(np.uint32)) & 1 == 1
+            first = set_.argmax(axis=0)
+            claim[f] = np.where(set_.any(axis=0), steps[first], -1)
+    return claim.reshape(F, h, w), accepted
+
+
+def _paint_case(case):
+    """(probs [F, N, h, w], order, keep, thresholds) for the bit model's
+    cases: random frames of the seeds above, the hand-built frames, a map
+    of 7x9 pixels (hw = 63, not a multiple of 32), a frame with every keep
+    0 beside a random one, zero overlap thresholds with a query wholly
+    under an earlier one (accepted, paints nothing), and thresholds at
+    which overlapping masks are mostly rejected between accepted ones (the
+    resolve restarts at each change of outcome)."""
+    kw = dict(overlap_threshold=0.8, pixel_threshold=0.4)
+    if case == "hand_built":
+        cls, masks = _hand_built_frames()
+        _, _, keep, probs, _, _, order = TM.query_stats(
+            torch.from_numpy(cls), torch.from_numpy(masks), CFG)
+        return (probs.permute(0, 3, 1, 2).numpy(), order.int().numpy(),
+                keep.gather(1, order).int().numpy(), kw)
+    seed, (F, N, h, w) = {
+        "seed0": (0, (3, 16, 19, 27)), "seed1": (1, (3, 16, 19, 27)),
+        "seed2": (2, (3, 16, 19, 27)), "ragged_hw": (3, (2, 16, 7, 9)),
+        "void_frame": (4, (2, 16, 19, 27)),
+        "rejecting": (6, (3, 16, 19, 27))}.get(case, (5, (2, 16, 12, 14)))
+    rng = np.random.default_rng(seed)
+    probs = _softmax(rng.normal(size=(F, N, h, w)) * 3.0, axis=1)
+    order = np.stack([rng.permutation(N) for _ in range(F)]).astype(np.int32)
+    keep = (rng.uniform(size=(F, N)) < 0.7).astype(np.int32)
+    if case == "void_frame":
+        keep[1] = 0
+    if case.startswith("zero"):
+        # frame 1: query order[1, 1] lies wholly under order[1, 0]
+        under, over = order[1, 1], order[1, 0]
+        probs[1] = 0.01
+        probs[1, over] = 0.0
+        probs[1, over, :, :8], probs[1, under, :, 2:5] = 0.9, 0.6
+        keep[1, :2] = 1
+        kw = dict(overlap_threshold=0.0,
+                  pixel_threshold=0.0 if case == "zero_both" else 0.4)
+    if case == "rejecting":
+        kw = dict(overlap_threshold=0.9, pixel_threshold=0.1)
+    return probs, order, keep, kw
+
+
+@pytest.mark.parametrize("case", ["seed0", "seed1", "seed2", "hand_built",
+                                  "ragged_hw", "void_frame", "zero_overlap",
+                                  "zero_both", "rejecting"])
+def test_paint_bit_decomposition_matches_jax_and_plain(case):
+    """B3's pack / resolve / stamp decomposition (numpy model of the card
+    kernel's word layout) gives the JAX kernel's claims (interpret mode) and
+    the plain version's claims and accepted flags bit for bit."""
+    probs, order, keep, kw = _paint_case(case)
+    claim, accepted = _paint_by_bits(probs, order, keep, **kw)
+    want = np.asarray(jax_paint_masks(jnp.asarray(probs), jnp.asarray(order),
+                                      jnp.asarray(keep), interpret=True, **kw))
+    np.testing.assert_array_equal(claim, want)
+    plain_claim, plain_acc = paint_masks_plain(
+        torch.from_numpy(probs), torch.from_numpy(order),
+        torch.from_numpy(keep), **kw)
+    np.testing.assert_array_equal(claim, plain_claim.numpy())
+    np.testing.assert_array_equal(accepted, plain_acc.numpy())
+    assert (claim >= 0).any()
+    if case == "ragged_hw":
+        assert probs.shape[2] * probs.shape[3] % 32 != 0
+    if case == "void_frame":
+        assert (claim[1] < 0).all() and not accepted[1].any()
+    if case == "rejecting":
+        _, area = _pack_model(probs, order, keep, kw["pixel_threshold"])
+        rejected = (keep != 0) & (area > 0) & ~accepted
+        assert rejected.sum() > accepted.sum()
+    if case.startswith("zero"):
+        # an accepted query that paints nothing
+        painted = np.zeros_like(accepted)
+        for f in range(len(claim)):
+            painted[f, np.unique(claim[f][claim[f] >= 0])] = True
+        assert (accepted & ~painted).any()
+
+
 def test_panoptic_overlap_stuff_merge_and_void_frames():
     cat, seg = _assert_panoptic_equal(*_hand_built_frames())
     assert (cat[0, :, :12] == 3).all() and (cat[0, :, 20:22] == 133).all()
