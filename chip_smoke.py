@@ -23,10 +23,13 @@ JSON line:
               ms, a library call's ms where one exists, and the bound (least
               time the card could take). B3 also gives its three steps'
               times (pack, resolve, stamp) and the longest chain of kept
-              steps in a frame; B4 and B5 their achieved bytes/s. B5 at the
-              vision tower's shape over one chunk ([280, 12, 50, 64], f32
-              and bf16) and the text tower's ([3, 8, 77, 64], causal), with
-              scaled_dot_product_attention as the library call.
+              steps in a frame; B4 and B5 their achieved bytes/s. B1 at
+              both entries gives its live rows, weighted corners, the
+              corner-row bytes a kernel reading them from L2 moves
+              (grid/splat.py `splat_work`) and its achieved bytes/s. B5 at
+              the vision tower's shape over one chunk ([280, 12, 50, 64],
+              f32 and bf16) and the text tower's ([3, 8, 77, 64], causal),
+              with scaled_dot_product_attention as the library call.
 3. crosscheck the small synthetic path (96x72, 8 frames, 0.06 m voxels, a
               small CLIP with 64-wide heads) on the CPU (plain versions) and
               on the card (kernels):
@@ -56,7 +59,10 @@ JSON line:
               launch counts are zeroed just before and read just after; a
               kernel with no launch fails the run, and B2 and B5 must launch
               once per CLIP layer of every encode (12 per chunk, 12 for the
-              query's text).
+              query's text). Then B1 on the inputs the path gave it for its
+              first chunk (kept aside during the run), timed into a zero
+              grid of the path's size: live rows, ms, bound, bytes/s
+              (`splat_chunk0`).
 7. path_brick the `path` configuration with integrator="brick"; then the
               sparse integrator on the same inputs in the same process:
               tsdf_w, w and label_hist equal, tsdf_sum and rgb_sum within
@@ -123,7 +129,7 @@ ATTN_REPLACES = "benchmarks/probe_mosaic_attn.py:68"
 SLEEP_CYCLES = 10_000_000
 
 # kernel names of each port kernel in a profiler trace
-PORT_KERNELS = {"feature_splat": ("splat_kernel",),
+PORT_KERNELS = {"feature_splat": ("splat_kernel", "compact_kernel"),
                 "ln_mlp": ("ln_mlp_fused", "ln_mlp_phase", "ln_stats",
                            "split_kernel"),
                 "paint_masks": ("paint_",),
@@ -198,26 +204,135 @@ def _splat_inputs(gen, N_buf, K, F, Py, Px, C, dev):
     return feat_sum, feat_imgs, uvw.contiguous()
 
 
-def _splat_work(uvw, rows_valid, Py, Px, C):
-    """(bytes, flops) the splat needs on these inputs: each touched
-    feat_sum row read and written once, uvw / indices / feature images read
-    once; 2 flops per channel per in-grid weighted corner."""
+def splat_cases(gen, dev):
+    """B1's inputs at the paths' shapes, 5x7 patches of F = 8 frames, C =
+    512, over the 0.02 m grid's 101*35*99 (+1) rows: {"splat_scatter":
+    (feat_sum, active, uvw, feat_imgs)} with K = 65,536 slots, 50,000 of
+    them live (sorted rows; the rest dead slots past the end, with zero
+    weight), and {"splat": (feat_sum, uvw, feat_imgs)} over every row,
+    about 15% near the surface."""
     import torch
 
-    F = uvw.shape[1]
-    px, py, val = uvw[..., 0], uvw[..., 1], uvw[..., 2]
-    x0, y0 = torch.floor(px), torch.floor(py)
-    corners = torch.zeros_like(val)
-    for dy in (0, 1):
-        for dx in (0, 1):
-            cx, cy = x0 + dx, y0 + dy
-            corners += ((cx >= 0) & (cx < Px) & (cy >= 0) & (cy < Py)
-                        & (val != 0)).float()
-    touched = int(((val != 0).any(dim=1) & rows_valid).sum())
-    nbytes = (2 * touched * C * 4 + uvw.numel() * 4
-              + uvw.shape[0] * 8 + F * Py * Px * C * 4)
-    flops = 2.0 * float(corners.sum()) * C
-    return nbytes, flops
+    N_buf, K, F, Py, Px, C = 101 * 35 * 99 + 1, 65536, 8, 5, 7, 512
+    feat_sum, feat_imgs, uvw = _splat_inputs(gen, N_buf, K, F, Py, Px, C, dev)
+    count = 50000
+    perm = torch.randperm(N_buf - 1, generator=gen, device=dev)[:count]
+    active = torch.full((K,), N_buf, dtype=torch.int64, device=dev)
+    active[:count] = perm.sort().values
+    uvw[count:, :, 2] = 0.0  # fill slots carry zero weight
+    feat_sum_d, _, uvw_d = _splat_inputs(gen, N_buf, N_buf, F, Py, Px, C,
+                                         dev)
+    uvw_d[torch.rand(N_buf, generator=gen, device=dev) < 0.8] *= \
+        torch.tensor([1.0, 1.0, 0.0], device=dev)  # ~15% near-surface rows
+    return {"splat_scatter": (feat_sum, active, uvw, feat_imgs),
+            "splat": (feat_sum_d, uvw_d, feat_imgs)}
+
+
+def splat_numbers(args, ms):
+    """B1's work on these inputs (grid/splat.py `splat_work`), its bound,
+    and the achieved rates at ms: the bound's bytes and the corner-row
+    bytes a kernel reading them from L2 would move."""
+    from spatially_aware_ai_tpu_torch.grid import splat as S
+
+    from spatially_aware_ai_tpu_torch.native_cuda import load
+
+    feat_sum, uvw, feat_imgs = args[0], args[-2], args[-1]
+    N_buf = feat_sum.shape[0]
+    F, Py, Px, C = feat_imgs.shape
+    valid = (args[1] >= 0) & (args[1] < N_buf) if len(args) == 4 else None
+    work = S.splat_work(uvw, Py, Px, C, rows_valid=valid)
+    bound_ms, bound_by = _bound(work["bytes"], work["flops"], PEAK_F32)
+    slice_of = load("feature_splat", S._SIGNATURES).sai_feature_splat_slice
+    return {**work, "bound_ms": bound_ms, "bound_by": bound_by,
+            "achieved_bytes_per_s": work["bytes"] / (ms * 1e-3),
+            "corner_bytes_per_s": work["corner_bytes"] / (ms * 1e-3),
+            "slice_channels": slice_of(F, Py * Px, C, _smem_optin())}
+
+
+def _smem_optin():
+    import torch
+
+    return torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+
+
+def _splat_checks(gen, dev, report):
+    """B1 against its plain version at both entries (1e-4; the scatter's
+    rows outside the live set untouched), timed, with the sparse product
+    as the scatter's library yardstick."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.grid import splat as S
+
+    cases = splat_cases(gen, dev)
+    tol = 1e-4
+    out = []
+    feat_sum, active, uvw, feat_imgs = cases["splat_scatter"]
+    N_buf, K = feat_sum.shape[0], active.shape[0]
+    F, Py, Px, C = feat_imgs.shape
+    got = S.splat_scatter(feat_sum.clone(), active, uvw, feat_imgs)
+    want = S.splat_scatter_plain(feat_sum.clone(), active, uvw, feat_imgs)
+    err = float((got - want).abs().max())
+    # rows outside the live set (dead slots point past the end) untouched
+    untouched = torch.ones(N_buf, dtype=torch.bool, device=dev)
+    untouched[active[active < N_buf]] = False
+    dead_ok = torch.equal(got[untouched], feat_sum[untouched])
+    del got, want
+    ms = time_ms(lambda: S.splat_scatter(feat_sum, active, uvw, feat_imgs))
+    plain_ms = time_ms(
+        lambda: S.splat_scatter_plain(feat_sum, active, uvw, feat_imgs),
+        warmup=1, iters=5)
+    lib_ms = _sparse_mm_ms(uvw, feat_imgs)
+    good = err <= tol and dead_ok
+    entry = {"kernel": "feature_splat", "entry": "splat_scatter",
+             "shape": {"K": K, "N_buf": N_buf, "F": F, "P": Py * Px, "C": C,
+                       "live": int((active < N_buf).sum())},
+             "max_abs_err": err, "tol": tol, "untouched_rows_ok": dead_ok,
+             "ok": good, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": lib_ms,
+             **splat_numbers(cases["splat_scatter"], ms)}
+    out.append(entry)
+    report["feature_splat"] = {
+        "name": "feature_splat", "route": "cuda",
+        "source": "spatially_aware_ai_tpu_torch/csrc/feature_splat.cu",
+        "replaces": SPLAT_REPLACES,
+        **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}}
+
+    # dense entry over every grid row (the hybrid integrator's shape)
+    feat_sum_d, uvw_d, _ = cases["splat"]
+    got = S.splat(feat_sum_d.clone(), uvw_d, feat_imgs)
+    want = S.splat_plain(feat_sum_d.clone(), uvw_d, feat_imgs)
+    err = float((got - want).abs().max())
+    del got, want
+    ms = time_ms(lambda: S.splat(feat_sum_d, uvw_d, feat_imgs))
+    plain_ms = time_ms(lambda: S.splat_plain(feat_sum_d, uvw_d, feat_imgs),
+                       warmup=1, iters=3)
+    out.append({"kernel": "feature_splat", "entry": "splat",
+                "shape": {"N": N_buf, "F": F, "P": Py * Px, "C": C},
+                "max_abs_err": err, "tol": tol, "ok": err <= tol, "ms": ms,
+                "plain_ms": plain_ms, **splat_numbers(cases["splat"], ms)})
+    report["feature_splat"]["dense"] = {
+        k: out[-1][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by")}
+    return out
+
+
+def _sparse_mm_ms(uvw, feat_imgs):
+    """The library yardstick of B1: the contraction as one sparse product,
+    W [K, F*P] (CSR, built outside the timing) @ feat_imgs [F*P, C]."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.grid import splat as S
+
+    K, dev = uvw.shape[0], uvw.device
+    F, Py, Px, C = feat_imgs.shape
+    W = torch.zeros((K, F * Py * Px), device=dev)
+    for f in range(F):
+        for idx, w in S._corner_terms(uvw[:, f], Py, Px):
+            W[torch.arange(K, device=dev), f * Py * Px + idx] += w
+    W = W.to_sparse_csr()
+    flat = feat_imgs.reshape(F * Py * Px, C)
+    return time_ms(lambda: torch.sparse.mm(W, flat))
 
 
 def _bound(nbytes, flops, peak_flops):
@@ -228,7 +343,6 @@ def _bound(nbytes, flops, peak_flops):
 def phase_kernels(report):
     import torch
 
-    from spatially_aware_ai_tpu_torch.grid import splat as S
     from spatially_aware_ai_tpu_torch.models import ln_mlp as L
 
     dev = torch.device("cuda")
@@ -236,79 +350,9 @@ def phase_kernels(report):
     checks = []
     ok = True
 
-    # ---- B1 at the path's shapes: K = 65,536 slots, F = 8, 5x7 patches,
-    # C = 512, over the 0.02 m grid's 101*35*99 (+1) rows
-    N_buf, K, F, Py, Px, C = 101 * 35 * 99 + 1, 65536, 8, 5, 7, 512
-    feat_sum, feat_imgs, uvw = _splat_inputs(gen, N_buf, K, F, Py, Px, C, dev)
-    count = 50000
-    perm = torch.randperm(N_buf - 1, generator=gen, device=dev)[:count]
-    active = torch.full((K,), N_buf, dtype=torch.int64, device=dev)
-    active[:count] = perm.sort().values
-    uvw[count:, :, 2] = 0.0  # fill slots carry zero weight
-    tol = 1e-4
-    got = S.splat_scatter(feat_sum.clone(), active, uvw, feat_imgs)
-    want = S.splat_scatter_plain(feat_sum.clone(), active, uvw, feat_imgs)
-    err = float((got - want).abs().max())
-    # rows outside the live set (dead slots point past the end) untouched
-    untouched = torch.ones(N_buf, dtype=torch.bool, device=dev)
-    untouched[active[:count]] = False
-    dead_ok = torch.equal(got[untouched], feat_sum[untouched])
-    del got, want
-    ms = time_ms(lambda: S.splat_scatter(feat_sum, active, uvw, feat_imgs))
-    plain_ms = time_ms(
-        lambda: S.splat_scatter_plain(feat_sum, active, uvw, feat_imgs),
-        warmup=1, iters=5)
-    # library yardstick: the contraction as one sparse product,
-    # W [K, F*P] (CSR, built outside the timing) @ feat_imgs [F*P, C]
-    W = torch.zeros((K, F * Py * Px), device=dev)
-    for f in range(F):
-        for idx, w in S._corner_terms(uvw[:, f], Py, Px):
-            W[torch.arange(K, device=dev), f * Py * Px + idx] += w
-    W = W.to_sparse_csr()
-    flat = feat_imgs.reshape(F * Py * Px, C)
-    lib_ms = time_ms(lambda: torch.sparse.mm(W, flat))
-    del W
-    nbytes, flops = _splat_work(uvw, active < N_buf, Py, Px, C)
-    bound_ms, bound_by = _bound(nbytes, flops, PEAK_F32)
-    good = err <= tol and dead_ok
-    ok &= good
-    checks.append({"kernel": "feature_splat", "entry": "splat_scatter",
-                   "shape": {"K": K, "N_buf": N_buf, "F": F, "P": Py * Px,
-                             "C": C, "live": count},
-                   "max_abs_err": err, "tol": tol, "untouched_rows_ok": dead_ok,
-                   "ok": good, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by})
-    report["feature_splat"] = {
-        "name": "feature_splat", "route": "cuda",
-        "source": "spatially_aware_ai_tpu_torch/csrc/feature_splat.cu",
-        "replaces": SPLAT_REPLACES, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}
-
-    # dense entry over every grid row (the hybrid integrator's shape)
-    feat_sum_d, _, uvw_d = _splat_inputs(gen, N_buf, N_buf, F, Py, Px, C,
-                                         dev)
-    uvw_d[torch.rand(N_buf, generator=gen, device=dev) < 0.8] *= \
-        torch.tensor([1.0, 1.0, 0.0], device=dev)  # ~15% near-surface rows
-    got = S.splat(feat_sum_d.clone(), uvw_d, feat_imgs)
-    want = S.splat_plain(feat_sum_d.clone(), uvw_d, feat_imgs)
-    err = float((got - want).abs().max())
-    del got, want
-    ms = time_ms(lambda: S.splat(feat_sum_d, uvw_d, feat_imgs))
-    plain_ms = time_ms(lambda: S.splat_plain(feat_sum_d, uvw_d, feat_imgs),
-                       warmup=1, iters=3)
-    nbytes, flops = _splat_work(
-        uvw_d, torch.ones(N_buf, dtype=torch.bool, device=dev), Py, Px, C)
-    bound_ms, bound_by = _bound(nbytes, flops, PEAK_F32)
-    good = err <= tol
-    ok &= good
-    checks.append({"kernel": "feature_splat", "entry": "splat",
-                   "shape": {"N": N_buf, "F": F, "P": Py * Px, "C": C},
-                   "max_abs_err": err, "tol": tol, "ok": good, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by})
-    del feat_sum_d, uvw_d, feat_sum, uvw
+    for entry in _splat_checks(gen, dev, report):
+        ok &= entry["ok"]
+        checks.append(entry)
 
     # ---- B2: CLIP shapes (quick_gelu, eps 1e-5, no gamma) and ConvNeXt-L
     # widths (exact gelu, eps 1e-6, gamma), f32 and bf16, M not a multiple
@@ -574,6 +618,26 @@ def _paint_check(gen, dev, checks, report):
     return good
 
 
+# B5's shapes: the vision tower over one chunk's 280 tiles, f32 (the
+# path's) and bf16 (the probe's), and the text tower's 3 prompts, causal
+def attention_cases():
+    import torch
+
+    return ((280, 12, 50, False, torch.float32),
+            (280, 12, 50, False, torch.bfloat16),
+            (3, 8, 77, True, torch.float32))
+
+
+def attention_inputs(gen, dev, B, H, T, dt):
+    """A fused qkv tensor [B, T, 3 H 64] and its head views q, k, v [B, H,
+    T, 64], as CLIP passes them."""
+    import torch
+
+    qkv = torch.randn((B, T, 3 * H * 64), generator=gen, device=dev).to(dt)
+    q, k, v = qkv.view(B, T, 3, H, 64).permute(2, 0, 3, 1, 4)
+    return qkv, q, k, v
+
+
 def _attention_check(gen, dev, checks, report):
     """B5 against its plain version at the CLIP towers' shapes: the vision
     tower over one chunk's 280 tiles ([280, 12, 50, 64]) in f32 (the path's
@@ -591,12 +655,8 @@ def _attention_check(gen, dev, checks, report):
     from spatially_aware_ai_tpu_torch.models import attention as A
 
     ok = True
-    for B, H, T, causal, dt in ((280, 12, 50, False, torch.float32),
-                                (280, 12, 50, False, torch.bfloat16),
-                                (3, 8, 77, True, torch.float32)):
-        qkv = torch.randn((B, T, 3 * H * 64), generator=gen,
-                          device=dev).to(dt)
-        q, k, v = qkv.view(B, T, 3, H, 64).permute(2, 0, 3, 1, 4)
+    for B, H, T, causal, dt in attention_cases():
+        qkv, q, k, v = attention_inputs(gen, dev, B, H, T, dt)
         got = A.attention(q, k, v, causal)
         want = A.attention_plain(q, k, v, causal)
         err = float((got.float() - want.float()).abs().max())
@@ -989,10 +1049,14 @@ def phase_path(report, integrator="sparse"):
     torch.cuda.reset_peak_memory_stats()
 
     messages = []
+    kept, restore = _keep_first_scatter(integrator == "sparse")
     S.launches = L.launches = A.launches = 0
     t0 = time.perf_counter()
-    result = fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
-                       device=dev, progress=messages.append)
+    try:
+        result = fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
+                           device=dev, progress=messages.append)
+    finally:
+        restore()
     secs["fuse_scan_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mesh = result.extract_mesh(feats_on_device=True)
@@ -1052,6 +1116,10 @@ def phase_path(report, integrator="sparse"):
         out["vs_sparse"] = _grids_against(result, sparse)
         out["vs_sparse"]["fuse_scan_s_sparse"] = time.perf_counter() - t0
         checks["equal_to_sparse"] = out["vs_sparse"].pop("ok")
+    if integrator == "sparse":
+        out["splat_chunk0"] = _splat_on_path(kept)
+        report.setdefault("feature_splat", {"name": "feature_splat"})[
+            "path_chunk0_ms"] = out["splat_chunk0"]["ms"]
     out["ok"] = all(checks.values())
     emit(out)
     _record_launches(report, name, launches)
@@ -1059,6 +1127,44 @@ def phase_path(report, integrator="sparse"):
         raise SystemExit(f"{name} phase failed: {checks}")
     return (lambda: fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
                               device=dev)), secs["fuse_scan_s"]
+
+
+def _keep_first_scatter(on: bool):
+    """Spy on the sparse integrator's B1 call (grid.fusion's splat_scatter)
+    when on: the first call's feat_sum shape, rows, uvw and images (the
+    path's first chunk) are kept by reference (each chunk makes them anew,
+    so they stay as they were; no device work is added to the timed run).
+    Returns (kept, restore)."""
+    from spatially_aware_ai_tpu_torch.grid import fusion
+
+    real = fusion.splat_scatter
+    kept = {}
+    if not on:
+        return kept, lambda: None
+
+    def spy(feat_sum, active, uvw, feat_imgs):
+        if not kept:
+            kept.update(shape=tuple(feat_sum.shape), active=active, uvw=uvw,
+                        feat_imgs=feat_imgs)
+        return real(feat_sum, active, uvw, feat_imgs)
+
+    fusion.splat_scatter = spy
+    return kept, lambda: setattr(fusion, "splat_scatter", real)
+
+
+def _splat_on_path(kept):
+    """B1's scatter on the inputs the path gave it for its first chunk
+    (after the launch counts are read), into a zero grid of the path's
+    size: live rows, ms, work and bound."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.grid import splat as S
+
+    args = (torch.zeros(kept["shape"], device=kept["uvw"].device),
+            kept["active"], kept["uvw"], kept["feat_imgs"])
+    ms = time_ms(lambda: S.splat_scatter(*args))
+    return {"live_rows": int(kept["active"].shape[0]), "ms": ms,
+            **splat_numbers(args, ms)}
 
 
 def _grids_against(a, b):

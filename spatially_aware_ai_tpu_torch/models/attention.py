@@ -11,17 +11,21 @@ scores and the softmax are f32; in bf16 the scores and the probabilities
 are rounded to bf16 where the JAX CLIP's einsums store them (its
 `att.astype(x.dtype)`), and the output is stored in the input dtype.
 
-The CUDA kernel is csrc/attention.cu (hd = 64, T <= 128, f32 or bf16). On
-CUDA tensors `attention` launches it or raises; on CPU tensors it runs the
-plain PyTorch version below. q, k and v may be any strided views whose last
-axis is contiguous, such as the head views of a fused qkv projection, so
-no copy is made. `launches` counts kernel launches (CUDA tensors only).
+The CUDA kernel is csrc/attention.cu (hd = 64, T <= 128, f32 or bf16):
+both products on the tensor cores (mma.sync; f32 as 3xTF32), the score
+rows in registers, Q K^T's accumulator fed to P V as its A operand with V
+staged in `v_stage_order` (f32). On CUDA tensors `attention` launches it
+or raises; on CPU tensors it runs the plain PyTorch version below. q, k
+and v may be any strided views whose last axis is contiguous, such as the
+head views of a fused qkv projection, so no copy is made. `launches`
+counts kernel launches (CUDA tensors only).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 # launches of the CUDA kernel, for runs that check the path went through it
@@ -46,6 +50,21 @@ def attention_plain(q, k, v, causal: bool = False):
         att = att + torch.triu(mask, diagonal=1).to(att.dtype)
     att = torch.softmax(att.float(), dim=-1).to(q.dtype)
     return (att @ v).transpose(1, 2).reshape(B, T, H * hd)
+
+
+def v_stage_order(n: int, bf16: bool):
+    """Source key of each stored V row of the kernel's shared memory (numpy
+    int64 [n], n a multiple of 8). f32: within each group of 8 keys, stored
+    row s holds key 2s (s < 4) or 2(s - 4) + 1, so that the m16n8k8 A
+    fragment's columns t and t + 4 are the keys 2t and 2t + 1 that Q K^T's
+    accumulator holds; bf16: as they are (the m16n8k16 A fragment takes the
+    accumulator pairs in key order). Mirrors load_item in
+    csrc/attention.cu."""
+    p = np.arange(n)
+    if bf16:
+        return p
+    s = p % 8
+    return p - s + np.where(s < 4, 2 * s, 2 * (s - 4) + 1)
 
 
 def bf16_ulps(got, want):

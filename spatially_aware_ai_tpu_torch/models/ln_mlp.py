@@ -43,10 +43,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def activation(h, act: str):
+    """quick_gelu, or the exact (erf) gelu through F.gelu. Not torch.erf:
+    on the CPU its first threaded call in a process sometimes computes the
+    calling thread's share with an erf about 2e-4 off (ROADMAP C9; F.gelu
+    has its own erf)."""
     if act == "quick_gelu":
         return h * torch.sigmoid(1.702 * h)
     if act == "gelu":
-        return 0.5 * h * (1.0 + torch.erf(h * 0.7071067811865476))
+        return torch.nn.functional.gelu(h)
     raise ValueError(f"unknown activation: {act}")
 
 

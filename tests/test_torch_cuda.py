@@ -102,6 +102,51 @@ def test_splat_kernel_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F,Py,Px,C", [
+    (1, 5, 7, 64), (3, 5, 7, 64), (8, 5, 7, 64),
+    (1, 5, 7, 512), (3, 5, 7, 512), (8, 5, 7, 512),   # the paths' chunks
+    (8, 15, 16, 64),      # no 32-channel slice fits: the L2 route
+    (3, 4, 5, 72),        # a partial last slice
+    (3, 4, 5, 32),        # one float a lane
+])
+def test_splat_kernel_routes_on_card(F, Py, Px, C):
+    """Both entries at each shared-memory slice width and on the L2
+    route, against the plain version (1e-4); the scatter's dead slots
+    dropped and rows outside the live set untouched; one count per launch;
+    the kernel takes the L2 route exactly at the shape meant for it."""
+    from spatially_aware_ai_tpu_torch.native_cuda import load
+
+    dev = _card()
+    smem = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    kernel_choice = load("feature_splat", S._SIGNATURES).sai_feature_splat_slice
+    assert (kernel_choice(F, Py * Px, C, smem) == 0) == (Py * Px == 240)
+    rng = np.random.default_rng(F * 1000 + C)
+    N, K = 3000, 1024
+    feat_sum, feat_imgs, uvw = _splat_inputs(N, N, C, F, Py, Px, rng)
+    uvw[rng.uniform(size=N) < 0.5, :, 2] = 0.0   # rows no frame sees
+    fs, u, im = (torch.from_numpy(a).to(dev) for a in (feat_sum, uvw,
+                                                        feat_imgs))
+    n0 = S.launches
+    got = S.splat(fs.clone(), u, im)
+    assert S.launches == n0 + 1
+    torch.testing.assert_close(got, S.splat_plain(fs.clone(), u, im),
+                               atol=1e-4, rtol=0)
+
+    live = np.sort(rng.choice(N, size=700, replace=False))
+    active = np.full(K, N, np.int64)
+    active[:700] = live
+    act = torch.from_numpy(active).to(dev)
+    ua = u[:K].contiguous()
+    got = S.splat_scatter(fs.clone(), act, ua, im)
+    assert S.launches == n0 + 2
+    torch.testing.assert_close(
+        got, S.splat_scatter_plain(fs.clone(), act, ua, im), atol=1e-4,
+        rtol=0)
+    untouched = torch.from_numpy(np.setdiff1d(np.arange(N), live)).to(dev)
+    assert torch.equal(got[untouched], fs[untouched])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("act,eps,with_gamma,dtype,D,M", [
     ("quick_gelu", 1e-5, False, torch.float32, 512, 77),   # CLIP text
     ("quick_gelu", 1e-5, False, torch.bfloat16, 768, 200),  # CLIP vision
@@ -395,6 +440,54 @@ def test_attention_kernel_on_card(B, H, T_, causal, dtype, layout):
     else:
         assert float(A.bf16_ulps(got.view(B, T_, H, 64),
                                  want.view(B, T_, H, 64)).max()) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T_", [1, 16, 17, 50, 64, 65, 77, 128])
+def test_attention_kernel_tokens_on_card(T_, causal, dtype):
+    """B5 at every padding case of its 16-row tiles and 64-row items (T a
+    multiple of 16, one over, the CLIP towers' 50 and 77, the most it
+    takes), on the head views of a fused qkv tensor: f32 within 1e-5, bf16
+    within 2 bf16 ulps of each row's largest output; one count per
+    launch."""
+    from spatially_aware_ai_tpu_torch.core.device import full_f32
+
+    dev = _card()
+    B, H = 7, 5
+    q, k, v = _qkv(B, H, T_, dtype, dev, np.random.default_rng(T_), "view")
+    n0 = A.launches
+    got = A.attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert A.launches == n0 + 1
+    with full_f32():
+        want = A.attention_plain(q, k, v, causal)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        assert float(A.bf16_ulps(got.view(B, T_, H, 64),
+                                 want.view(B, T_, H, 64)).max()) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_takes_unaligned_views(dtype):
+    """Head views that start 4 bytes (f32) or 2 bytes (bf16) past a
+    16-byte boundary, which 16-byte cp.async cannot read: the kernel's
+    plain load path gives what contiguous copies give."""
+    dev = _card()
+    B, T_, H = 4, 50, 3
+    rng = np.random.default_rng(22)
+    wide = torch.from_numpy(rng.normal(size=(B, T_, 3 * H * 64 + 1)).astype(
+        np.float32)).to(dev, dtype)
+    q, k, v = wide[..., 1:].unflatten(-1, (3, H, 64)).permute(2, 0, 3, 1, 4)
+    assert q.data_ptr() % 16 != 0 and q.stride(-1) == 1
+    for causal in (False, True):
+        got = A.attention(q, k, v, causal)
+        want = A.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

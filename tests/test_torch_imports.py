@@ -53,7 +53,9 @@ def test_port_imports_with_jax_blocked():
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
                      r"spatially_aware_ai_tpu)\b")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in (
+        "chip_smoke.py", "kernel_ab.py", os.path.join("tools",
+                                                      "c9_erf_probe.py"))]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bad = [f"{f}:{i + 1}" for f in files

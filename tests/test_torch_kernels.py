@@ -174,6 +174,36 @@ def test_ln_mlp_takes_the_callers_weight_layout():
     assert torch.equal(via_view, contiguous)
 
 
+def test_cpu_gelu_does_not_go_through_torch_erf():
+    """ROADMAP C9: on the CPU, torch.erf's first threaded call in a process
+    sometimes computed the calling thread's share of the tensor with an erf
+    about 2e-4 off (fresh-process sweeps of the ConvNeXt block: the drift of
+    test_convnext_block_matches_jax_fused, rows 0-98 of 198, the main
+    thread's half). The port's exact gelu therefore goes through F.gelu,
+    whose erf is its own. The old formulation, 0.5 h (1 + erf(h / sqrt 2)),
+    dispatches aten::erf and fails here; the values stay those of the exact
+    gelu (float64, 2e-6 at |h| < 12)."""
+    from scipy.special import erf
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    h = torch.from_numpy((RNG.normal(size=(198, 256)) * 3).astype(np.float32))
+    with Ops() as ops:
+        g = L.activation(h, "gelu")
+    assert "erf" not in ops.seen and "gelu" in ops.seen
+    hd = h.double().numpy()
+    np.testing.assert_allclose(g.numpy(), 0.5 * hd * (1 + erf(hd / np.sqrt(2))),
+                               atol=2e-6, rtol=0)
+
+
 # The A-register slots the kernels fill for thread column group t (t = lane
 # % 4) at k-step kk of a slab, as a source column of the slab (route 2) or
 # of the 64-wide hidden chunk (route 1, from the GEMM1 accumulator, whose
@@ -286,3 +316,242 @@ def test_attention_wrapper_checks():
     with pytest.raises(TypeError):
         A.attention(q, q.bfloat16(), q)
     assert (A.HEAD_DIM, A.MAX_TOKENS) == (64, 128)
+
+
+# ---- B5's tensor-core design, walked in numpy
+#
+# PTX fragment layouts, lane = 4 g + t: (row, column) of each register
+# element. m16n8k8 TF32: A a0..a3, B b0, b1; m16n8k16 bf16: A a0..a3 and B
+# b0, b1 each hold two elements (the lower half first); the f32
+# accumulator is the same for both.
+
+
+def _frag_a(g, t, bf16):
+    if not bf16:
+        return [(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)]
+    return [(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t), (g + 8, 2 * t + 1),
+            (g, 2 * t + 8), (g, 2 * t + 9), (g + 8, 2 * t + 8),
+            (g + 8, 2 * t + 9)]
+
+
+def _frag_b(g, t, bf16):
+    if not bf16:
+        return [(t, g), (t + 4, g)]
+    return [(2 * t, g), (2 * t + 1, g), (2 * t + 8, g), (2 * t + 9, g)]
+
+
+def _frag_c(g, t):
+    return [(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t), (g + 8, 2 * t + 1)]
+
+
+def _mma(a_regs, b_regs, c_regs, bf16):
+    """One warp's mma.sync: the lanes' register values placed by the PTX
+    layouts, multiplied, and handed back in the accumulator layout."""
+    k = 16 if bf16 else 8
+    A, B = np.full((16, k), np.nan), np.full((k, 8), np.nan)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for (r, c), x in zip(_frag_a(g, t, bf16), a_regs[lane]):
+            A[r, c] = x
+        for (r, c), x in zip(_frag_b(g, t, bf16), b_regs[lane]):
+            B[r, c] = x
+    assert not np.isnan(A).any() and not np.isnan(B).any()
+    D = A @ B
+    return [[c + D[r, col] for c, (r, col) in zip(c_regs[lane],
+                                                  _frag_c(*divmod(lane, 4)))]
+            for lane in range(32)]
+
+
+def _ldmatrix_x4_trans(Vs, row0, col0):
+    """ldmatrix.x4.trans as attention.cu's `values` addresses it: lane l
+    gives row row0 + (l & 7) + 8 ((l >> 3) & 1), column col0 + 8 (l >> 4)
+    of matrix l // 8; lane (g, t) receives, of each matrix, elements
+    (2t, g) and (2t + 1, g) of the 8x8 block at those rows."""
+    addr = [(row0 + (l & 7) + 8 * ((l >> 3) & 1), col0 + 8 * (l >> 4))
+            for l in range(32)]
+    out = []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        regs = []
+        for m in range(4):
+            for i in (2 * t, 2 * t + 1):
+                r, c = addr[8 * m + i]
+                regs.append(Vs[r, c + g])
+        out.append(regs)
+    return out
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_attention_fragments_give_qk_and_pv(bf16):
+    """A numpy walk of csrc/attention.cu's `scores` and `values` for one
+    warp (16 query rows, 32 keys, hd 64): the Q and K registers as the
+    kernel reads them from shared memory, Q K^T's accumulators reused as
+    P V's A operand as the kernel packs them, and V's B registers from V
+    stored in `v_stage_order` (f32) or through ldmatrix.trans (bf16). The
+    result must be q k^T and p v (any p laid out as the accumulator)."""
+    rng = np.random.default_rng(31)
+    R, T, HD = 16, 32, 64
+    q, k, v = rng.normal(size=(R, HD)), rng.normal(size=(T, HD)), \
+        rng.normal(size=(T, HD))
+    NT = T // 8
+    zero = [[0.0] * 4 for _ in range(32)]
+    s = [zero] * NT
+    for kk in range(HD // (16 if bf16 else 8)):
+        a = []
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            if bf16:   # 32-bit words 8kk + t and 8kk + t + 4 of rows g, g + 8
+                c = 16 * kk + 2 * t
+                a.append([q[g, c], q[g, c + 1], q[g + 8, c], q[g + 8, c + 1],
+                          q[g, c + 8], q[g, c + 9], q[g + 8, c + 8],
+                          q[g + 8, c + 9]])
+            else:
+                c = 8 * kk + t
+                a.append([q[g, c], q[g + 8, c], q[g, c + 4], q[g + 8, c + 4]])
+        for n in range(NT):
+            b = []
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                j = 8 * n + g
+                if bf16:
+                    c = 16 * kk + 2 * t
+                    b.append([k[j, c], k[j, c + 1], k[j, c + 8], k[j, c + 9]])
+                else:
+                    c = 8 * kk + t
+                    b.append([k[j, c], k[j, c + 4]])
+            s[n] = _mma(a, b, s[n], bf16)
+    S = np.zeros((R, T))
+    for n in range(NT):
+        for lane in range(32):
+            for (r, c), x in zip(_frag_c(*divmod(lane, 4)), s[n][lane]):
+                S[r, 8 * n + c] = x
+    np.testing.assert_allclose(S, q @ k.T, rtol=1e-12, atol=1e-12)
+
+    p = s   # any P laid out as the accumulator; here the scores themselves
+    Vs = v[A.v_stage_order(T, bf16)]
+    o = [zero] * 8
+    if bf16:
+        for kk in range(T // 16):
+            a = [p[2 * kk][lane][:2] + p[2 * kk][lane][2:]
+                 + p[2 * kk + 1][lane][:2] + p[2 * kk + 1][lane][2:]
+                 for lane in range(32)]
+            for npair in range(4):
+                b = _ldmatrix_x4_trans(Vs, 16 * kk, 16 * npair)
+                o[2 * npair] = _mma(a, [r[:4] for r in b], o[2 * npair], True)
+                o[2 * npair + 1] = _mma(a, [r[4:] for r in b],
+                                        o[2 * npair + 1], True)
+    else:
+        for kk in range(NT):
+            # A columns t, t + 4 are the accumulator's keys 2t, 2t + 1
+            a = [[p[kk][lane][0], p[kk][lane][2], p[kk][lane][1],
+                  p[kk][lane][3]] for lane in range(32)]
+            for n in range(8):
+                b = []
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    b.append([Vs[8 * kk + t, 8 * n + g],
+                              Vs[8 * kk + t + 4, 8 * n + g]])
+                o[n] = _mma(a, b, o[n], False)
+    O = np.zeros((R, HD))
+    for n in range(8):
+        for lane in range(32):
+            for (r, c), x in zip(_frag_c(*divmod(lane, 4)), o[n][lane]):
+                O[r, 8 * n + c] = x
+    np.testing.assert_allclose(O, S @ v, rtol=1e-12, atol=1e-12)
+
+
+def test_v_stage_order():
+    np.testing.assert_array_equal(A.v_stage_order(16, False),
+                                  [0, 2, 4, 6, 1, 3, 5, 7,
+                                   8, 10, 12, 14, 9, 11, 13, 15])
+    np.testing.assert_array_equal(A.v_stage_order(16, True), np.arange(16))
+
+
+def _tf32_split(x):
+    """attention.cu's `split` on float32 x: big = x with its low 13
+    mantissa bits zero, small = the rest rounded to TF32 (cvt.rna: to
+    nearest, ties away from zero)."""
+    x = np.ascontiguousarray(x, np.float32)
+    big = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    rest = (x - big).view(np.uint32)
+    small = ((rest + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+    return big, small
+
+
+def _mm_3xtf32(x, y):
+    """x @ y as 3xTF32 (small*big + big*small + big*big, each product
+    exact, the sum rounded to f32 once)."""
+    xb, xs = _tf32_split(x)
+    yb, ys = _tf32_split(y)
+    f = np.float64
+    return (xs.astype(f) @ yb.astype(f) + xb.astype(f) @ ys.astype(f)
+            + xb.astype(f) @ yb.astype(f)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,H,T,causal", [(8, 12, 50, False),
+                                           (3, 8, 77, True)])
+def test_attention_3xtf32_meets_the_f32_limit(B, H, T, causal):
+    """The f32 kernel's arithmetic emulated on the CPU (3xTF32 products,
+    f32 softmax with the kernel's expf and division, the scale applied to
+    the f32 scores) at 8 crops of the vision shape and at the text shape,
+    on the card tests' inputs: within their 1e-5 of attention_plain in
+    float64, the limit the kernel is held to on the card."""
+    rng = np.random.default_rng(21)
+    qkv = rng.normal(size=(B, T, 3 * H * 64)).astype(np.float32)
+    q, k, v = qkv.reshape(B, T, 3, H, 64).transpose(2, 0, 3, 1, 4)
+    want = A.attention_plain(*(torch.from_numpy(np.ascontiguousarray(a))
+                               .double() for a in (q, k, v)), causal)
+    want = want.numpy().reshape(B, T, H, 64)
+    got = np.empty_like(want, dtype=np.float32)
+    mask = np.triu(np.ones((T, T), bool), 1) if causal else \
+        np.zeros((T, T), bool)
+    for b in range(B):
+        for h in range(H):
+            s = _mm_3xtf32(q[b, h], k[b, h].T) * np.float32(0.125)
+            s[mask] = -np.inf
+            e = np.exp(s - s.max(-1, keepdims=True))
+            p = (e / e.sum(-1, keepdims=True, dtype=np.float32)).astype(
+                np.float32)
+            got[b, :, h] = _mm_3xtf32(p, v[b, h])
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
+# ---- B1's work counts
+
+
+@pytest.mark.parametrize("entry", ["splat", "splat_scatter"])
+def test_splat_work_matches_a_loop(entry):
+    """splat_work against a plain Python loop over rows, frames and
+    corners: touched rows, weighted in-grid corners, bytes, flops and the
+    corner-row bytes. The dense entry reads every uvw row and no index
+    array; the scatter entry reads its int64 indices and the uvw rows of
+    valid destinations only."""
+    rng = np.random.default_rng(41)
+    K, F, Py, Px, C = 40, 3, 4, 5, 8
+    _, _, uvw = _splat_inputs(K, C, F, Py, Px, rng)
+    uvw[rng.uniform(size=K) < 0.2, :, 2] = 0.0
+    scatter = entry == "splat_scatter"
+    rows_valid = rng.uniform(size=K) < 0.8 if scatter else np.ones(K, bool)
+    touched = corners = 0
+    for r in range(K):
+        if not rows_valid[r] or not (uvw[r, :, 2] != 0).any():
+            continue
+        touched += 1
+        for f in range(F):
+            if uvw[r, f, 2] == 0:
+                continue
+            x0, y0 = np.floor(uvw[r, f, 0]), np.floor(uvw[r, f, 1])
+            corners += sum(0 <= x0 + dx < Px and 0 <= y0 + dy < Py
+                           for dy in (0, 1) for dx in (0, 1))
+    got = S.splat_work(torch.from_numpy(uvw), Py, Px, C,
+                       rows_valid=torch.from_numpy(rows_valid) if scatter
+                       else None)
+    uvw_bytes = int(rows_valid.sum()) * F * 3 * 4
+    assert got == {
+        "touched_rows": touched, "corners": corners,
+        "bytes": 2 * touched * C * 4 + uvw_bytes + (K * 8 if scatter else 0)
+        + F * Py * Px * C * 4,
+        "flops": 2.0 * corners * C, "corner_bytes": corners * C * 4}
+    assert 0 < touched < K and corners > 0
+    assert (uvw_bytes < uvw.size * 4) == scatter
