@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases build,kernels,crosscheck_kmax,path_kmax
+    python3 chip_smoke.py --phases build,crosscheck_kmax,path_kmax,path_kmax_bf16
     python3 chip_smoke.py --phases build,kernels,probe_tiledma,path_brick
     python3 chip_smoke.py --phases build,kernels,insitu
     python3 chip_smoke.py --phases build,serve
@@ -32,9 +33,10 @@ JSON line:
               both entries gives its live rows, weighted corners, the
               corner-row bytes a kernel reading them from L2 moves
               (grid/splat.py `splat_work`) and its achieved bytes/s. B5 at
-              the vision tower's shape over one chunk ([280, 12, 50, 64],
-              f32 and bf16) and the text tower's ([3, 8, 77, 64], causal),
-              with scaled_dot_product_attention as the library call.
+              the vision tower's shape over one chunk ([280, 12, 50, 64])
+              and the text tower's ([3, 8, 77, 64], causal), each in f32
+              and bf16, with scaled_dot_product_attention as the library
+              call.
 3. crosscheck the small synthetic path (96x72, 8 frames, 0.06 m voxels, a
               small CLIP with 64-wide heads) on the CPU (plain versions) and
               on the card (kernels):
@@ -49,6 +51,17 @@ JSON line:
               CPU's logits
               through the card's panoptic inference (B3) give the CPU's
               category / segment maps exactly, also at overlap threshold 0.
+              Then the same in bf16 (compute_dtype), unit by unit: every
+              call of the CPU's forward to a ConvBN, BN, ConvNeXt block,
+              stem / downsampling conv, axial attention, k-means layer or
+              predictor head run again on the card on the CPU's inputs,
+              within 2 bf16 ulps of the output's largest magnitude or
+              twice the unit's own bf16 rounding there where that is more
+              (models/kmax/diagnostics.py), a ConvBN whose BN scale is 5%
+              off failing it (the control); the whole forward's logits
+              printed; fused labels equal on >= KMAX_BF16_LABEL_FLOOR of
+              the pixels; the CPU's bf16 logits through the card's B3 give
+              the CPU's maps exactly.
 5. probe_tiledma
               benchmarks/probe_tiledma.py's A/B at its operating point:
               1024x768 depth + label, a 57x56x55 grid at 0.04 m in 8^3
@@ -86,6 +99,18 @@ JSON line:
               kernel, each port kernel's (B1-B5) device time and launches,
               and the device's busy time, as a share of the profiled wall
               and of the unprofiled fuse_scan.
+9a. path_kmax_bf16
+              path_kmax with both models in bf16 (compute_dtype
+              torch.bfloat16, the JAX package's bf16): counts zeroed just
+              before the fuse / mesh / objects / query run and read just
+              after, B1, B2, B3 and B5 as often as in path_kmax and B2 / B5
+              in bf16 every time; the bf16 logits of 2-frame slices
+              bit-equal to the 8-frame batch (C14); the bf16 model's
+              categories and fused labels against the f32 model's on the
+              first chunk (ROADMAP A5's figure, gated only at
+              KMAX_BF16_AGREEMENT_FLOOR) and the patch features' cosine;
+              fuse_scan of the f32 and bf16 models in turns (f32, bf16,
+              bf16, f32): seconds, labels_s, inference_s, peak memory.
 10. insitu    the in-situ learning path on the `path` configuration: fuse
               v00 of the scene and flood fill it; give the chair and the
               table user names, and the red box a third; prepare the
@@ -607,11 +632,12 @@ def _b2_weight_stream(M, D, H, esize):
 def _b2_entry(args, act, eps, timed):
     """B2 against its plain version on args; with `timed`, its ms, the
     plain version's and the library's: the two products alone as cuBLAS
-    f32 GEMMs (torch.addmm twice, TF32 off, on the LN'd input and the
-    activation the plain version makes), the same work B2's tensor cores
-    do. The bound is the 3xTF32 tensor-core floor for f32 (three TF32
-    products per f32 product), the bf16 peak for bf16; the f32 CUDA-core
-    figure stands beside it."""
+    GEMMs in the activation dtype (torch.addmm twice, TF32 off for f32, on
+    the LN'd input and the activation the plain version makes, each
+    rounded to that dtype as B2 rounds them), the same work B2's tensor
+    cores do. The bound is the 3xTF32 tensor-core floor for f32 (three
+    TF32 products per f32 product), the bf16 peak for bf16; the f32
+    CUDA-core figure stands beside it."""
     import torch
 
     from spatially_aware_ai_tpu_torch.models import ln_mlp as L
@@ -656,38 +682,51 @@ def _b2_entry(args, act, eps, timed):
         kw = dict(act=act, eps=eps)
         entry["ms"] = time_ms(lambda: L.fused_ln_mlp(*args, **kw))
         entry["plain_ms"] = time_ms(lambda: L.ln_mlp_plain(*args, **kw))
-        if dt == torch.float32:
-            xf = x.float()
-            mu = xf.mean(-1, keepdim=True)
-            lnx = (xf - mu) * torch.rsqrt(
-                (xf - mu).square().mean(-1, keepdim=True) + eps) * lns + lnb
-            hid = L.activation(lnx @ w1 + b1, act)
-            entry["library_ms"] = time_ms(lambda: (
-                torch.addmm(b1, lnx, w1), torch.addmm(b2, hid, w2)))
-            del xf, mu, lnx, hid
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        lnx = ((xf - mu) * torch.rsqrt(
+            (xf - mu).square().mean(-1, keepdim=True) + eps) * lns
+            + lnb).to(dt)
+        del xf, mu
+        w1d, w2d, b1d, b2d = (t.to(dt) for t in (w1, w2, b1, b2))
+        hid = L.activation(torch.addmm(b1d, lnx, w1d).float(), act).to(dt)
+        entry["library_ms"] = time_ms(lambda: (
+            torch.addmm(b1d, lnx, w1d), torch.addmm(b2d, hid, w2d)))
+        del lnx, hid, w1d, w2d
     return entry
 
 
+# B2's launches per run of path_kmax (4 chunks of 8 frames) at each
+# ConvNeXt-L stage: one per block and chunk (depths 3, 3, 27, 3)
+CONVNEXT_PATH_SHAPES = ((192, 650752, 12), (384, 162688, 12),
+                        (768, 40672, 108), (1536, 10168, 12))
+
+
 def _convnext_mlp_checks(gen, dev, checks, report):
-    """B2 in f32 at the four ConvNeXt-L stage shapes of the kMaX path: 8
-    frames padded to 992x1312 give M = 8 * 248 * 328 rows at os4 and a
-    quarter of that per later stage; exact gelu, eps 1e-6, gamma. The f32
-    tolerance as above (3e-4 abs)."""
+    """B2 in f32 and in bf16 at the four ConvNeXt-L stage shapes of the
+    kMaX path: 8 frames padded to 992x1312 give M = 8 * 248 * 328 rows at
+    os4 and a quarter of that per later stage; exact gelu, eps 1e-6,
+    gamma. The tolerances as above (f32 3e-4 abs; bf16 3e-2 abs + 2e-2
+    rel); the library call is two cuBLAS GEMMs in the same dtype."""
     import torch
 
     ok = True
-    by_shape = {}
-    for D, M in ((192, 650752), (384, 162688), (768, 40672), (1536, 10168)):
-        args = _mlp_args(gen, dev, M, D, True, torch.float32)
-        entry = _b2_entry(args, "gelu", 1e-6, timed=True)
-        entry["path"] = "kmax ConvNeXt-L"
-        ok &= entry["ok"]
-        checks.append(entry)
-        by_shape[f"D{D}_M{M}"] = {k: entry[k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
-        del args
-    report.setdefault("ln_mlp", {"name": "ln_mlp"})["convnext_f32"] = \
-        by_shape
+    for dt, key in ((torch.float32, "convnext_f32"),
+                    (torch.bfloat16, "convnext_bf16")):
+        by_shape = {}
+        for D, M, launches in CONVNEXT_PATH_SHAPES:
+            args = _mlp_args(gen, dev, M, D, True, dt)
+            entry = _b2_entry(args, "gelu", 1e-6, timed=True)
+            entry["path"] = "kmax ConvNeXt-L"
+            ok &= entry["ok"]
+            checks.append(entry)
+            by_shape[f"D{D}_M{M}"] = {
+                **{k: entry[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err")},
+                "launches_per_path_run": launches}
+            del args
+        report.setdefault("ln_mlp", {"name": "ln_mlp"})[key] = by_shape
     return ok
 
 
@@ -802,14 +841,16 @@ def _paint_check(gen, dev, checks, report):
     return good
 
 
-# B5's shapes: the vision tower over one chunk's 280 tiles, f32 (the
-# path's) and bf16 (the probe's), and the text tower's 3 prompts, causal
+# B5's shapes: the vision tower over one chunk's 280 tiles and the text
+# tower's 3 prompts (causal), each in f32 (the f32 paths') and bf16
+# (path_kmax_bf16's)
 def attention_cases():
     import torch
 
     return ((280, 12, 50, False, torch.float32),
             (280, 12, 50, False, torch.bfloat16),
-            (3, 8, 77, True, torch.float32))
+            (3, 8, 77, True, torch.float32),
+            (3, 8, 77, True, torch.bfloat16))
 
 
 def attention_inputs(gen, dev, B, H, T, dt):
@@ -824,10 +865,11 @@ def attention_inputs(gen, dev, B, H, T, dt):
 
 def _attention_check(gen, dev, checks, report):
     """B5 against its plain version at the CLIP towers' shapes: the vision
-    tower over one chunk's 280 tiles ([280, 12, 50, 64]) in f32 (the path's
-    dtype; 1e-5 abs) and bf16 (the probe's; 2 bf16 ulps of each row's
-    largest output), the text tower's 3 prompts ([3, 8, 77, 64], causal,
-    f32), all on the head views of a fused qkv tensor as CLIP passes them.
+    tower over one chunk's 280 tiles ([280, 12, 50, 64]) and the text
+    tower's 3 prompts ([3, 8, 77, 64], causal), each in f32 (the f32
+    paths'; 1e-5 abs) and bf16 (path_kmax_bf16's; 2 bf16 ulps of each
+    row's largest output), all on the head views of a fused qkv tensor as
+    CLIP passes them.
     The bound counts q, k, v read once and o written once, and the
     products' operations (2 * hd per score and per output term, over the
     pairs the causal mask keeps) at the peak for their type (f32 CUDA
@@ -1190,10 +1232,163 @@ def phase_crosscheck_kmax():
             out[f"{key}panoptic_maps_equal"] = same
             out[f"{key}segments"] = int(cpu_maps[1].max())
             ok &= same
+    ok &= _crosscheck_kmax_bf16(cfg, model.state_dict(), rgbs, out)
     out["ok"] = ok
     emit(out)
     if not ok:
         raise SystemExit("crosscheck_kmax phase: CPU and CUDA runs disagree")
+
+
+# the ConvNeXt layer scale of the bf16 unit checks' model: the random
+# weights' 1e-6 leaves a block's output its input, where a block's check
+# would not see B2
+KMAX_BF16_LAYER_SCALE = 0.1
+# the share of pixels whose fused label the card's bf16 run must give as
+# the CPU's bf16 run does: random weights leave near-tied bf16 logits
+# whose argmax one rounding flips, and a flipped k-means assignment can
+# repaint a frame, so the floor only says that the two runs still segment
+# the frames alike; the unit checks hold the arithmetic
+KMAX_BF16_LABEL_FLOOR = 0.5
+# the control of the unit checks: one ConvBN's BN scale raised by this
+# factor on the card must fail its limit
+KMAX_BF16_CONTROL_SCALE = 1.05
+
+
+def _kmax_bf16_units(cfg, state_dict, imgs, res, dev="cuda"):
+    """crosscheck_kmax's unit checks (models/kmax/diagnostics.py) on the
+    small kMaX in bf16 with its ConvNeXt layer scales raised to
+    KMAX_BF16_LAYER_SCALE: every unit call of the CPU's forward run again
+    on the card on the CPU's inputs, and each k-means layer once more on
+    unit-scale inputs of the first frame's shapes (where its own rounding
+    is small); the control. Fills `res`; returns whether every call kept
+    its limit and the control failed its own."""
+    import copy
+
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models.attention import max_bf16_ulps
+    from spatially_aware_ai_tpu_torch.models.kmax import diagnostics as D
+    from spatially_aware_ai_tpu_torch.models.kmax import model as KM
+
+    bf = torch.bfloat16
+    state_dict = {k: (torch.full_like(v, KMAX_BF16_LAYER_SCALE)
+                      if k.endswith(".gamma") else v)
+                  for k, v in state_dict.items()}
+    cpu, card = (KM.KmaxSegmenter(cfg, state_dict, device=d,
+                                  compute_dtype=bf).model
+                 for d in ("cpu", dev))
+    with torch.inference_mode():
+        with D.unit_calls(cpu) as calls:
+            cpu(imgs)
+        dists = D.unit_distances(card, cpu, calls)
+        gen = torch.Generator().manual_seed(0)
+        layers = [c for c in calls if c[0] == "KMaxTransformerLayer"]
+        unit_scale = []
+        for kind, name, meth, args, _ in layers[:len(cfg.dec_blocks)]:
+            a = tuple(torch.randn(t.shape, generator=gen).to(bf)
+                      for t in args)
+            unit_scale.append((f"{kind} (unit-scale inputs)", name, meth, a,
+                               cpu.get_submodule(name)(*a)))
+        dists += D.unit_distances(card, cpu, unit_scale)
+        _, unit, _, args, want = next(
+            c for c in calls if c[1].endswith("_pixel_space_head_last_convbn"))
+        broken = copy.deepcopy(card.get_submodule(unit))
+        broken.norm.weight.mul_(KMAX_BF16_CONTROL_SCALE)
+        control = max_bf16_ulps(broken(args[0].to(dev)), want)
+        control_limit = next(d[5] for d in dists if d[1] == unit)
+    units = {}
+    for kind, _, _, ulps, rounding, limit in dists:
+        u = units.setdefault(kind, {"calls": 0, "max_ulps": 0.0,
+                                    "max_rounding_ulps": 0.0,
+                                    "max_limit": 0.0, "over": 0})
+        u["calls"] += 1
+        u["max_ulps"] = max(u["max_ulps"], ulps)
+        u["max_rounding_ulps"] = max(u["max_rounding_ulps"], rounding)
+        u["max_limit"] = max(u["max_limit"], limit)
+        u["over"] += ulps > limit
+    res.update(layer_scale=KMAX_BF16_LAYER_SCALE, unit_ulps=D.UNIT_ULPS,
+               rounding_factor=D.ROUNDING_FACTOR, units=units,
+               units_over=sum(u["over"] for u in units.values()),
+               control={"unit": unit, "scale": KMAX_BF16_CONTROL_SCALE,
+                        "ulps": control, "limit": control_limit})
+    return (res["units_over"] == 0 and set(D.UNIT_KINDS) < set(units)
+            and control > control_limit)
+
+
+def _crosscheck_kmax_bf16(cfg, state_dict, rgbs, out, dev="cuda"):
+    """crosscheck_kmax's bf16 pass: the small kMaX with compute_dtype bf16
+    on the CPU (plain kernels) and on the card from one state dict. Unit
+    by unit (`_kmax_bf16_units`: FrozenBatchNorm, ConvBN, ConvNeXt blocks
+    with B2, the stem and downsampling convolutions, axial attentions,
+    k-means layers, the predictor's heads), every call of the CPU's
+    forward run again on the card on the CPU's inputs: within
+    diagnostics.UNIT_ULPS bf16 ulps of the output's largest magnitude, or
+    ROUNDING_FACTOR times the unit's own bf16 rounding on those inputs
+    where that is more; a ConvBN with its BN scale raised by
+    KMAX_BF16_CONTROL_SCALE must fail its limit (the control). Whole
+    forward, printed: the card's class and mask logits with each k-means
+    assignment taken from the CPU run, and the CPU's f32 forward with the
+    same assignments, in ulps from the CPU's bf16 logits, and free running.
+    The painting model's fused labels equal on >= KMAX_BF16_LABEL_FLOOR
+    of the pixels; the CPU's bf16 logits, cast to f32, through the card's
+    panoptic_inference_batch (B3) give the CPU's maps exactly."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models.attention import max_bf16_ulps
+    from spatially_aware_ai_tpu_torch.models.kmax import diagnostics as D
+    from spatially_aware_ai_tpu_torch.models.kmax import model as KM
+
+    bf = torch.bfloat16
+    segs = {d: KM.KmaxSegmenter(cfg, state_dict, device=d, compute_dtype=bf)
+            for d in ("cpu", dev)}
+    card = segs[dev]
+    H, W = rgbs.shape[1:3]
+    new_h, new_w, pad_h, pad_w = segs["cpu"]._test_shape(H, W)
+    f32 = KM.KmaxSegmenter(cfg, state_dict, device="cpu")
+    res = {"label_floor": KMAX_BF16_LABEL_FLOOR}
+    imgs = KM.prep_batch(rgbs, new_h, new_w, pad_h, pad_w)
+    ok = _kmax_bf16_units(cfg, state_dict, imgs, res, dev)
+    with torch.inference_mode():
+        with D.kmeans_logits(segs["cpu"].model) as recorded:
+            cpu = segs["cpu"].model(imgs)
+        free = card.model(imgs.to(card.device))
+        runs = {}
+        for name, model, x in (("card", card.model, imgs.to(card.device)),
+                               ("f32", f32.model, imgs)):
+            with D.kmeans_logits(model, recorded):
+                runs[name] = model(x)
+        forced = runs["card"]
+    res["dtypes"] = sorted({str(t.dtype) for t in (*cpu, *free, *forced)})
+    ok &= res["dtypes"] == ["torch.bfloat16"]
+    for i, name in enumerate(("class", "mask")):
+        res[f"{name}_logits_forced_ulps"] = max_bf16_ulps(forced[i], cpu[i])
+        res[f"{name}_logits_f32_forced_ulps"] = max_bf16_ulps(
+            runs["f32"][i], cpu[i])
+        res[f"{name}_logits_free_ulps"] = max_bf16_ulps(free[i], cpu[i])
+
+    for seg in segs.values():
+        _scale_for_painting(seg.model)
+    labels = [seg.run_on_batch_fused_labels(rgbs, as_numpy=False).cpu()
+              for seg in (segs["cpu"], card)]
+    res["fused_label_agreement"] = float(
+        (labels[0] == labels[1]).float().mean())
+    res["painted_share"] = float((labels[0] != KM.NULL_ID).float().mean())
+    ok &= (res["fused_label_agreement"] >= KMAX_BF16_LABEL_FLOOR
+           and res["painted_share"] > 0)
+    with torch.inference_mode():
+        cls, masks = segs["cpu"].model(imgs)
+        cls = cls.float()
+        masks = masks[:, :-(-new_h // 4), :-(-new_w // 4)].float()
+        cpu_maps = KM.panoptic_inference_batch(cls, masks, cfg)
+        card_maps = KM.panoptic_inference_batch(cls.to(card.device),
+                                                masks.to(card.device), cfg)
+    res["panoptic_maps_equal"] = all(torch.equal(a, b.cpu())
+                                     for a, b in zip(cpu_maps, card_maps))
+    res["segments"] = int(cpu_maps[1].max())
+    ok &= res["panoptic_maps_equal"]
+    res["ok"] = bool(ok)
+    out["bf16"] = res
+    return ok
 
 
 def phase_path(report, integrator="sparse"):
@@ -1509,6 +1704,229 @@ def phase_path_kmax(report):
         raise SystemExit(f"path_kmax phase failed: {checks}")
     return (lambda: fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
                               device=dev)), secs["fuse_scan_s"]
+
+
+def _dtype_tally(module):
+    """Count the activation dtype of each launch of a kernel wrapper
+    module's `_launch` (its first argument), without touching its launch
+    count. Returns (tally, restore)."""
+    import collections
+
+    real = module._launch
+    tally = collections.Counter()
+
+    def spy(*args, **kwargs):
+        tally[str(args[0].dtype)[6:]] += 1
+        return real(*args, **kwargs)
+
+    module._launch = spy
+    return tally, lambda: setattr(module, "_launch", real)
+
+
+# the share of pixels whose category the bf16 model must give as the f32
+# model does in path_kmax_bf16: random weights leave near-tied logits (the
+# painting scale sharpens their softmax, not their margins), whose argmax
+# bf16 rounding flips, so the figure is a lower bound for a trained model;
+# the floor says only that bf16 still segments the frames as f32 does
+KMAX_BF16_AGREEMENT_FLOOR = 0.5
+
+
+# path_kmax_bf16's scan: path_kmax's
+KMAX_BF16_SCAN = {"num_frames": 32, "width": 1024, "height": 768}
+
+
+def _peak_gb(dev, reset=False):
+    """The card's peak allocated GB since the last reset (None on the
+    CPU); with `reset`, start a new window instead."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def phase_path_kmax_bf16(report, dev="cuda"):
+    """path_kmax with both models in bf16 (compute_dtype): the CLIP towers
+    and kMaX-DeepLab ConvNeXt-L at full width from the same seeds, the
+    kMaX scaled for painting. The main run (counts zeroed just before,
+    read just after) fuses, meshes, finds objects and answers a query; B1,
+    B2, B3 and B5 must launch as often as in path_kmax, B2 and B5 in bf16
+    every time. Then on the first chunk's frames: the bf16 logits of
+    2-frame slices bit-equal to the 8-frame batch's (C14); the bf16
+    model's categories and fused labels against the f32 model's (ROADMAP
+    A5's agreement, gated at KMAX_BF16_AGREEMENT_FLOOR), and the patch
+    features' cosine against f32. Last, fuse_scan of the f32 and the bf16
+    models in turns (f32, bf16, bf16, f32): seconds, labels_s, inference_s
+    and peak memory of each."""
+    import numpy as np
+    import torch
+
+    from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
+    from spatially_aware_ai_tpu_torch.grid import splat as S
+    from spatially_aware_ai_tpu_torch.models import attention as A
+    from spatially_aware_ai_tpu_torch.models import ln_mlp as L
+    from spatially_aware_ai_tpu_torch.models.clip.engine import ClipEngine
+    from spatially_aware_ai_tpu_torch.models.clip.model import (
+        VIT_B_32_QUICKGELU)
+    from spatially_aware_ai_tpu_torch.models.kmax import model as KM
+    from spatially_aware_ai_tpu_torch.models.kmax import paint as P
+    from spatially_aware_ai_tpu_torch.pipeline import FusionConfig, fuse_scan
+    from spatially_aware_ai_tpu_torch.scene import flood_fill_3d
+
+    dev = torch.device(dev)
+    bf = torch.bfloat16
+    secs = {}
+    t0 = time.perf_counter()
+    n_frames, chunk = KMAX_BF16_SCAN["num_frames"], 8
+    ds = SyntheticSceneDataset(**KMAX_BF16_SCAN)
+    for i in range(len(ds)):  # render up front: set-up, not the path
+        ds[i]
+    models = {}
+    for key, dt in (("f32", None), ("bf16", bf)):
+        engine = ClipEngine.random(VIT_B_32_QUICKGELU, seed=0,
+                                   compute_dtype=dt, device=dev)
+        seg = KM.KmaxSegmenter.random(KM.KMAX_CONVNEXT_LARGE, seed=0,
+                                      device=dev, compute_dtype=dt)
+        _scale_for_painting(seg.model)
+        models[key] = (engine, seg)
+    engine, seg = models["bf16"]
+    cfg = FusionConfig(voxel_size=0.02, clip_patch_size=256,
+                       clip_patch_stride=128, frame_chunk=chunk,
+                       with_labels=True)
+    _sync(dev)
+    secs["setup_s"] = time.perf_counter() - t0
+    _peak_gb(dev, reset=True)
+
+    tallies = [_dtype_tally(L), _dtype_tally(A)]
+    S.launches = L.launches = P.launches = A.launches = 0
+    try:
+        t0 = time.perf_counter()
+        result = fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
+                           device=dev)
+        secs["fuse_scan_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh = result.extract_mesh(feats_on_device=True)
+        _sync(dev)
+        secs["extract_mesh_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nvox = result.nvox
+        sk, _ = flood_fill_3d(result.values["class_id"].reshape(nvox), None,
+                              result.feat_grid,
+                              result.values["rgb"].reshape(*nvox, 3))
+        secs["flood_fill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        feats = mesh["clip_feats"]
+        feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+        rel = engine.run_query(feats, ["a red box", "a chair", "the floor"])
+        secs["query_s"] = time.perf_counter() - t0
+    finally:
+        for _, restore in tallies:
+            restore()
+    launches = {"feature_splat": S.launches, "ln_mlp": L.launches,
+                "paint_masks": P.launches, "attention": A.launches}
+    dtypes = {"ln_mlp": dict(tallies[0][0]),
+              "attention": dict(tallies[1][0])}
+    peak_gb = _peak_gb(dev)
+    n_chunks = -(-n_frames // chunk)
+    blocks = sum(KM.KMAX_CONVNEXT_LARGE.backbone.depths)
+    expected = {
+        "feature_splat": n_chunks,
+        "ln_mlp": n_chunks * (VIT_B_32_QUICKGELU.vision_layers + blocks)
+        + VIT_B_32_QUICKGELU.text_layers,
+        "paint_masks": n_chunks,
+        "attention": n_chunks * VIT_B_32_QUICKGELU.vision_layers
+        + VIT_B_32_QUICKGELU.text_layers}
+
+    # the first chunk's frames, after the counts
+    rgbs = np.stack([ds[i].rgb for i in range(chunk)]).astype(np.float32)
+    with torch.inference_mode():
+        imgs = torch.as_tensor(rgbs, device=dev)
+        new_h, new_w, pad_h, pad_w = seg._test_shape(*imgs.shape[1:3])
+        x = KM.prep_batch(imgs, new_h, new_w, pad_h, pad_w)
+        whole = seg.model(x)
+        parts = [seg.model(x[i:i + 2]) for i in range(0, chunk, 2)]
+        split_equal = all(torch.equal(whole[j],
+                                      torch.cat([p[j] for p in parts]))
+                          for j in range(2))
+        logits_dtypes = sorted({str(t.dtype) for t in whole})
+        del whole, parts, x
+        feats_by = {k: m[0].img_inference_tiled_batch(imgs, 256, 128)
+                    for k, m in models.items()}
+    a, b = (feats_by[k].reshape(-1, feats_by[k].shape[-1]).double()
+            for k in ("f32", "bf16"))
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    del feats_by, a, b
+    cats = {k: m[1].run_on_batch_panoptic(rgbs)[0]
+            for k, m in models.items()}
+    labels = {k: m[1].run_on_batch_fused_labels(rgbs)
+              for k, m in models.items()}
+    agreement = {
+        "categories": float((cats["f32"] == cats["bf16"]).mean()),
+        "fused_labels": float((labels["f32"] == labels["bf16"]).mean()),
+        "painted_share_f32": float((cats["f32"] != KM.NULL_ID).mean()),
+        "painted_share_bf16": float((cats["bf16"] != KM.NULL_ID).mean()),
+        "per_frame_categories": [float((x == y).mean()) for x, y in
+                                 zip(cats["f32"], cats["bf16"])],
+        "floor": KMAX_BF16_AGREEMENT_FLOOR}
+
+    # fuse_scan of each model in turns, f32 / bf16 / bf16 / f32
+    turns = []
+    for key in ("f32", "bf16", "bf16", "f32"):
+        e, sg = models[key]
+        _sync(dev)
+        _peak_gb(dev, reset=True)
+        t0 = time.perf_counter()
+        r = fuse_scan(ds, e, cfg, segmenter=sg.run_on_image, device=dev)
+        _sync(dev)
+        turns.append({"dtype": key,
+                      "fuse_scan_s": time.perf_counter() - t0,
+                      "labels_s": r.timings["labels_s"],
+                      "inference_s": r.timings["inference_s"],
+                      "peak_cuda_mem_gb": _peak_gb(dev)})
+        del r
+
+    feat_grid = result.feat_grid
+    checks = {
+        "feat_finite": bool(torch.isfinite(feat_grid).all()),
+        "feat_shape": list(feat_grid.shape) == [*nvox, engine.feature_dim],
+        "observed": int((result.values["weight"] > 0).sum()) > 0,
+        "mesh": len(mesh["verts_world"]) > 0 and len(mesh["faces"]) > 0,
+        "relevance": rel.shape == (len(mesh["verts_world"]), 3)
+        and bool(np.isfinite(rel).all())
+        and bool(np.allclose(rel.sum(-1), 1.0, atol=1e-4)),
+        "painted": agreement["painted_share_bf16"] > 0,
+        "launches": launches == expected,
+        "launches_as_path_kmax": all(
+            launches[k] == report.get(k, {}).get("launches_by_path", {})
+            .get("path_kmax", launches[k]) for k in launches),
+        "b2_all_bf16": dtypes["ln_mlp"] == {"bfloat16": expected["ln_mlp"]},
+        "b5_all_bf16": dtypes["attention"]
+        == {"bfloat16": expected["attention"]},
+        "logits_bf16": logits_dtypes == ["torch.bfloat16"],
+        "batch_split_bit_equal": split_equal,
+        "agreement_floor": agreement["categories"]
+        >= KMAX_BF16_AGREEMENT_FLOOR,
+    }
+    t = result.timings
+    out = {"phase": "path_kmax_bf16", "seconds": secs, "timings": t,
+           "kmax_s_per_frame": t["labels_s"] / n_frames,
+           "clip_and_wait_s": t["inference_s"] - t["labels_s"],
+           "labelled_voxels": int((result.values["class_id"] >= 0).sum()),
+           "nvox": list(nvox), "vertices": int(len(mesh["verts_world"])),
+           "objects": len(sk["unique_objects"]),
+           "peak_cuda_mem_gb": peak_gb, "launches": launches,
+           "expected_launches": expected, "launch_dtypes": dtypes,
+           "bf16_vs_f32": {**agreement,
+                           "patch_feature_cos_min": float(cos.min()),
+                           "patch_feature_cos_mean": float(cos.mean())},
+           "turns": turns, "checks": checks, "ok": all(checks.values())}
+    emit(out)
+    _record_launches(report, "path_kmax_bf16", launches)
+    if not out["ok"]:
+        raise SystemExit(f"path_kmax_bf16 phase failed: {checks}")
 
 
 def _paint_on_path(seg, rgbs):
@@ -3805,7 +4223,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,crosscheck,crosscheck_kmax,"
-                    "probe_tiledma,path,path_brick,path_kmax,profile,insitu,"
+                    "probe_tiledma,path,path_brick,path_kmax,profile,"
+                    "path_kmax_bf16,insitu,"
                     "serve,live,shard,multihost,depth,convert,evals,clis")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -3842,6 +4261,8 @@ def main(argv=None) -> int:
         profiled = ("path_kmax",) + phase_path_kmax(report)
     if "profile" in phases and profiled is not None:
         phase_profile(*profiled)
+    if "path_kmax_bf16" in phases:
+        phase_path_kmax_bf16(report)
     if "insitu" in phases:
         phase_insitu(report)
     if "serve" in phases:

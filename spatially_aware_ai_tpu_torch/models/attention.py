@@ -78,6 +78,17 @@ def bf16_ulps(got, want):
     return (got.double() - want).abs() / ulp
 
 
+def max_bf16_ulps(got, want) -> float:
+    """max |got - want| over the whole tensor in bf16 ulps of want's
+    largest magnitude (`bf16_ulps` over one row): the measure the bf16
+    models' limits are stated in. Takes tensors of any float dtype and
+    device, or arrays numpy can read."""
+    got, want = (
+        a.detach().float().cpu() if isinstance(a, torch.Tensor)
+        else torch.from_numpy(np.asarray(a, np.float32)) for a in (got, want))
+    return float(bf16_ulps(got.reshape(1, -1), want.reshape(1, -1)).max())
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, H, T, hd] of one shape, got "

@@ -6,7 +6,11 @@ gelu -> pointwise -> layer scale -> residual] blocks, LayerNorm + 2x2 /
 stride-2 downsampling between stages. Returns {os4, os8, os16, os32}.
 
 Activations are channels-last [B, H, W, C] throughout, so a block's
-[B, H, W, C] -> [B*H*W, C] is a view. The depthwise 7x7 is
+[B, H, W, C] -> [B*H*W, C] is a view. They run in the input's dtype (f32,
+or bf16 as the JAX package's `dtype=jnp.bfloat16`); parameters stay f32
+and are rounded to that dtype where they are used, LayerNorm statistics
+are f32 (flax's LayerNorm(dtype=...)), and B2 keeps its LN, biases, gamma
+and accumulation in f32. The depthwise 7x7 is
 `F.conv2d(groups=C)` on the channels-last NCHW view (the JAX package used
 plain XLA there; its shift-and-add variant is the same function and is not
 ported). The block's LN -> pw1 -> gelu -> pw2 -> gamma -> residual is
@@ -48,6 +52,14 @@ def _same_pad(n: int, k: int, s: int, d: int = 1):
     return total // 2, total - total // 2
 
 
+def layer_norm(ln: nn.LayerNorm, x):
+    """LayerNorm in f32 statistics, output in x.dtype (flax's
+    LayerNorm(dtype=...); for f32 x the plain `ln(x)`)."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                     ln.bias.float(), ln.eps)
+    return y.to(x.dtype)
+
+
 def conv2d_nhwc(x, conv: nn.Conv2d):
     """flax nn.Conv(padding="SAME") of a channels-last x [B, H, W, C] with a
     torch Conv2d's parameters (OIHW weight), through F.conv2d on the
@@ -65,6 +77,24 @@ def conv2d_nhwc(x, conv: nn.Conv2d):
                  None if conv.bias is None else conv.bias.to(x.dtype),
                  conv.stride, pad, conv.dilation, conv.groups)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _dense_conv(x, conv: nn.Conv2d):
+    """conv2d_nhwc for the stem and downsampling convolutions. In bf16 one
+    frame at a time, so that a frame's features do not depend on the
+    frames batched with it (ROADMAP C14): on the card cuDNN picks a bf16
+    convolution's algorithm by the batch size, and a 2x2 / stride-2 one of
+    a 4-frame batch rounded otherwise than of 2-frame slices, with its
+    deterministic flag on too (tools/kmax_dense_conv_ab.py, which also
+    times the cost: 1.5 ms a full-width 8-frame chunk on an H100). In f32
+    the whole batch: there the card's convolutions measured invariant, and
+    one frame at a time would round otherwise on the CPU than the batch
+    does. The depthwise convolutions and B2 give each frame the same bits
+    in any batch in both dtypes."""
+    if x.dtype != torch.bfloat16 or x.shape[0] == 1:
+        return conv2d_nhwc(x, conv)
+    return torch.cat([conv2d_nhwc(x[i:i + 1], conv)
+                      for i in range(x.shape[0])])
 
 
 class ConvNeXtBlock(nn.Module):
@@ -114,9 +144,9 @@ class ConvNeXt(nn.Module):
         for stage in range(4):
             a, b = self.downsample_layers[stage]
             if stage == 0:
-                x = b(conv2d_nhwc(x, a))
+                x = layer_norm(b, _dense_conv(x, a))
             else:
-                x = conv2d_nhwc(a(x), b)
+                x = _dense_conv(layer_norm(a, x), b)
             for blk in self.stages[stage]:
                 x = blk(x)
             feats[f"os{4 * 2 ** stage}"] = x

@@ -20,6 +20,15 @@ names follow the detectron2 names of the JAX package's converter
 state dict loads with `load_state_dict`; models/kmax/convert.py here
 carries the JAX package's flax variables across.
 
+The model runs in its `dtype` (f32, or bf16 as the JAX package's
+`KMaxDeepLab(dtype=jnp.bfloat16)`): parameters stay f32 and are rounded to
+that dtype where they are used, at the JAX package's cast points. Where
+that package's arithmetic promotes to f32 (attention logits divided by a
+numpy scalar, softmax and the attention-weighted sums, the axial
+attention's output BN), this one does too, and casts back at the next
+convolution, as flax's Conv(dtype=...) casts its input. The k-means pooling
+accumulates in f32 and rounds once.
+
 The panoptic decision path is f32 on every device. Its sequential paint is
 kernel B3 (models/kmax/paint.py); the rest of it is order-free tensor code.
 """
@@ -36,7 +45,8 @@ import torch.nn.functional as F
 
 from ...core.device import full_f32, resolve_device
 from .convnext import (CONVNEXT_LARGE, CONVNEXT_TINY_TEST, ConvNeXt,
-                       ConvNeXtBlock, ConvNeXtConfig, conv2d_nhwc)
+                       ConvNeXtBlock, ConvNeXtConfig, conv2d_nhwc,
+                       layer_norm)
 from .paint import paint_masks
 
 
@@ -80,7 +90,10 @@ def _gelu(x):
 
 class FrozenBatchNorm(nn.Module):
     """Inference BatchNorm over the last axis, with BatchNorm's state-dict
-    names (weight, bias, running_mean, running_var, num_batches_tracked)."""
+    names (weight, bias, running_mean, running_var, num_batches_tracked).
+    The statistics and affine are rounded to `dtype` (default x.dtype) and
+    each op runs in torch's promotion of x and that dtype, as the JAX
+    package's FrozenBatchNorm(dtype=...)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -92,15 +105,17 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * (self.weight * inv) + self.bias
+    def forward(self, x, dtype=None):
+        dt = dtype or x.dtype
+        inv = torch.rsqrt(self.running_var.to(dt) + self.eps)
+        return ((x - self.running_mean.to(dt)) * (self.weight.to(dt) * inv)
+                + self.bias.to(dt))
 
 
 class ConvBN(nn.Module):
     """conv (no bias) -> frozen BN -> optional gelu. dims=2 for NHWC maps
     (kernel k x k, SAME padding, dilation, groups), dims=1 for [B, N, C]
-    query features (kernel 1, i.e. a matmul)."""
+    query features (kernel 1, i.e. a matmul). Runs in x.dtype."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, groups: int = 1,
                  dilation: int = 1, act: Optional[str] = None, dims: int = 2):
@@ -117,7 +132,7 @@ class ConvBN(nn.Module):
     def forward(self, x):
         if self.pointwise:
             w = self.conv.weight
-            x = F.linear(x, w.reshape(w.shape[0], -1))
+            x = F.linear(x, w.reshape(w.shape[0], -1).to(x.dtype))
         else:
             x = conv2d_nhwc(x, self.conv)
         x = self.norm(x)
@@ -175,16 +190,23 @@ class AxialAttention(nn.Module):
         qkv = self._qkv_conv_bn(x).reshape(B, H, W, 3, self.heads, hd)
         q, k, v = qkv.unbind(dim=3)                      # [B, H, W, h, hd]
         pos = torch.arange(L, device=x.device)
-        bias = self.rel_bias[:, pos[:, None] - pos[None, :] + self.span - 1]
+        bias = self.rel_bias.to(x.dtype)[
+            :, pos[:, None] - pos[None, :] + self.span - 1]
+        # the logits in x.dtype, then f32 from the scale on (the JAX
+        # package divides by a numpy scalar, which promotes): the softmax,
+        # the weighted sum and the output BN are f32, with the BN's
+        # parameters rounded to x.dtype
         if self.axis == 1:
-            logits = torch.einsum("bqwnc,bkwnc->bwnqk", q, k) / math.sqrt(hd)
+            logits = torch.einsum("bqwnc,bkwnc->bwnqk", q, k).float() \
+                / math.sqrt(hd)
             attn = torch.softmax(logits + bias, dim=-1)
-            out = torch.einsum("bwnqk,bkwnc->bqwnc", attn, v)
+            out = torch.einsum("bwnqk,bkwnc->bqwnc", attn, v.float())
         else:
-            logits = torch.einsum("bhqnc,bhknc->bhnqk", q, k) / math.sqrt(hd)
+            logits = torch.einsum("bhqnc,bhknc->bhnqk", q, k).float() \
+                / math.sqrt(hd)
             attn = torch.softmax(logits + bias, dim=-1)
-            out = torch.einsum("bhnqk,bhknc->bhqnc", attn, v)
-        return self._out_bn(out.reshape(B, H, W, self.dim))
+            out = torch.einsum("bhnqk,bhknc->bhqnc", attn, v.float())
+        return self._out_bn(out.reshape(B, H, W, self.dim), x.dtype)
 
 
 class AxialBlock(nn.Module):
@@ -199,8 +221,11 @@ class AxialBlock(nn.Module):
         self._conv3_bn = ConvBN(mid, dim, 1)
 
     def forward(self, x):
-        h = self._attn_w(self._attn_h(self._conv1_bn_act(x)))
-        return _gelu(x + self._conv3_bn(_gelu(h)))
+        """x in the model's dtype; the attention's f32 output is rounded
+        back to it at the next convolution."""
+        h = self._attn_h(self._conv1_bn_act(x))
+        h = self._attn_w(h.to(x.dtype))
+        return _gelu(x + self._conv3_bn(_gelu(h).to(x.dtype)))
 
 
 class BottleneckBlock(nn.Module):
@@ -255,7 +280,7 @@ class KMaxPixelDecoder(nn.Module):
     def forward(self, feats):
         """feats {os4..os32} channels-last -> {os32..os4} with widths
         cfg.pd_dims."""
-        normed = {lv: self._in_norms[i](feats[lv])
+        normed = {lv: layer_norm(self._in_norms[i], feats[lv])
                   for i, lv in enumerate(_LEVELS)}
         outs = {}
         x = self._aspp(normed["os32"])
@@ -300,8 +325,9 @@ class KMaxPredictor(nn.Module):
 
     def class_logits(self, class_emb):
         w = self._transformer_class_head.weight
-        return F.linear(class_emb, w.reshape(w.shape[0], -1),
-                        self._transformer_class_head.bias)
+        dt = class_emb.dtype
+        return F.linear(class_emb, w.reshape(w.shape[0], -1).to(dt),
+                        self._transformer_class_head.bias.to(dt))
 
 
 class KMaxTransformerLayer(nn.Module):
@@ -323,19 +349,27 @@ class KMaxTransformerLayer(nn.Module):
     def forward(self, query, pixel, mask_logits):
         """query [B, N, D]; pixel [B, H, W, D]; mask_logits [B, H, W, N]."""
         B, N, D = query.shape
+        dt = query.dtype
         value = self._pixel_v_conv_bn(pixel).reshape(B, -1, D)
+        # the first maximal index on ties (jnp.argmax's rule, which bf16
+        # logits meet often); the one-hot in the model's dtype; the pooled
+        # sum over the frame's pixels accumulated in f32 and rounded once,
+        # as XLA's dot of two bf16 operands
         assign = F.one_hot(mask_logits.reshape(B, -1, N).argmax(dim=-1),
-                           N).to(value.dtype)             # [B, P, N]
-        pooled = torch.einsum("bpn,bpd->bnd", assign, value)
+                           N).to(dt)                      # [B, P, N]
+        pooled = torch.einsum("bpn,bpd->bnd", assign.float(),
+                              value.float()).to(dt)
         query = query + self._kmeans_query_conv3_bn(pooled)
 
         hd = D // self.heads
         qkv = self._query_qkv_conv_bn(query).reshape(B, N, 3, self.heads, hd)
         q, k, v = qkv.unbind(dim=2)                       # [B, N, h, hd]
-        att = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(hd)
-        sa = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(att, dim=-1), v)
+        # f32 from the scale on, as in AxialAttention
+        att = torch.einsum("bnhd,bmhd->bhnm", q, k).float() / math.sqrt(hd)
+        sa = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(att, dim=-1),
+                          v.float())
         query = query + self._query_self_attention_out_conv_bn(
-            sa.reshape(B, N, D))
+            sa.reshape(B, N, D).to(dt))
         h = self._query_ffn_conv2_bn(self._query_ffn_conv1_bn_act(query))
         return _gelu(query + h)
 
@@ -363,18 +397,27 @@ class _SemSegHead(nn.Module):
         self.transformer_decoder = KMaxTransformerDecoder(cfg)
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 class KMaxDeepLab(nn.Module):
-    def __init__(self, cfg: KMaxConfig = KMAX_CONVNEXT_LARGE):
+    def __init__(self, cfg: KMaxConfig = KMAX_CONVNEXT_LARGE,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"kMaX-DeepLab runs in float32 or bfloat16, "
+                             f"not {dtype}")
         self.cfg = cfg
+        self.dtype = dtype
         self.backbone = ConvNeXt(cfg.backbone)
         self.sem_seg_head = _SemSegHead(cfg)
 
     @full_f32()
     def forward(self, images):
-        """images [B, H, W, 3] normalised -> (class_logits [B, N, C + 1],
-        mask_logits [B, H/4, W/4, N]), with TF32 off whatever the caller's
-        flags (core/device.py).
+        """images [B, H, W, 3] normalised (any float dtype) ->
+        (class_logits [B, N, C + 1], mask_logits [B, H/4, W/4, N]) in the
+        model's dtype; f32 without TF32 whatever the caller's flags
+        (core/device.py).
 
         The backbone runs on the whole batch and the head (pixel decoder,
         kMaX decoder, predictor) one frame at a time, so that a frame's
@@ -384,8 +427,10 @@ class KMaxDeepLab(nn.Module):
         argmax turns that rounding into other cluster assignments: the
         final logits of 2-frame slices and of an 8-frame batch were 25% of
         their scale apart. The backbone's kernels (B2 and the depthwise
-        convolution) give each frame the same bits in any batch there."""
-        feats = self.backbone(images)
+        convolution) give each frame the same bits in any batch there; in
+        bf16 its stem and downsampling convolutions run a frame at a time
+        too (convnext._dense_conv)."""
+        feats = self.backbone(images.to(self.dtype))
         outs = [self._head({k: v[i:i + 1] for k, v in feats.items()})
                 for i in range(images.shape[0])]
         return (torch.cat([o[0] for o in outs]),
@@ -397,7 +442,7 @@ class KMaxDeepLab(nn.Module):
         dec = self.sem_seg_head.pixel_decoder(feats)
         td = self.sem_seg_head.transformer_decoder
         pred = self.sem_seg_head.predictor
-        query = td._cluster_centers.weight[None]
+        query = td._cluster_centers.weight[None].to(self.dtype)
         i = 0
         for li, n_blocks in enumerate(c.dec_blocks):
             pixel_space = td._pixel_space_projections[li](dec[_LEVELS[li]])
@@ -644,30 +689,37 @@ class KmaxSegmenter:
     nulled, computed on the device.
 
     The model lives on one device, the card unless `device="cpu"` is
-    passed, and runs in f32 throughout: TF32 stays off for its products
-    and convolutions whatever flags the caller set (`full_f32`)."""
+    passed. `compute_dtype` is the JAX package's: the model's activation
+    dtype, None or torch.float32 for f32 (the JAX package's choice off a
+    TPU), torch.bfloat16 for bf16. In f32 TF32 stays off for its products
+    and convolutions whatever flags the caller set (`full_f32`). Either
+    way the parameters stay f32, and the logits are cast to f32 before the
+    panoptic decision path, which is f32."""
 
-    def __init__(self, cfg: KMaxConfig, state_dict, device="cuda"):
+    def __init__(self, cfg: KMaxConfig, state_dict, device="cuda",
+                 compute_dtype=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = KMaxDeepLab(cfg)
+        self.compute_dtype = compute_dtype or torch.float32
+        self.model = KMaxDeepLab(cfg, dtype=self.compute_dtype)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device)
         self.model.eval().requires_grad_(False)
 
     @classmethod
     def random(cls, cfg: KMaxConfig = None, seed: int = 0,
-               device="cuda") -> "KmaxSegmenter":
+               device="cuda", compute_dtype=None) -> "KmaxSegmenter":
         """Random weights from a torch.Generator seeded with `seed` (the
         JAX package's jax.random weights differ: carry those across with
-        `from_jax_params`)."""
+        `from_jax_params`); the same weights in either compute dtype."""
         cfg = cfg or KMAX_CONVNEXT_LARGE
         model = KMaxDeepLab(cfg).init_random_(
             torch.Generator().manual_seed(seed))
-        return cls(cfg, model.state_dict(), device)
+        return cls(cfg, model.state_dict(), device, compute_dtype)
 
     @classmethod
-    def tiny(cls, seed: int = 0, device="cuda") -> "KmaxSegmenter":
+    def tiny(cls, seed: int = 0, device="cuda",
+             compute_dtype=None) -> "KmaxSegmenter":
         """The JAX package's small test config. Its backbone widths
         (16..64) are below what kernel B2 takes (multiples of 64), so it
         runs on the CPU only."""
@@ -676,25 +728,29 @@ class KmaxSegmenter:
             raise ValueError("KmaxSegmenter.tiny has ConvNeXt widths below "
                              "64, which kernel B2 does not take: run it "
                              "with device='cpu'")
-        return cls.random(KMAX_TINY_TEST, seed, device=dev)
+        return cls.random(KMAX_TINY_TEST, seed, device=dev,
+                          compute_dtype=compute_dtype)
 
     @classmethod
-    def from_jax_params(cls, cfg: KMaxConfig, variables,
-                        device="cuda") -> "KmaxSegmenter":
+    def from_jax_params(cls, cfg: KMaxConfig, variables, device="cuda",
+                        compute_dtype=None) -> "KmaxSegmenter":
         """The JAX package's flax variables carried across
         (models/kmax/convert.py)."""
         from .convert import kmax_state_dict_from_jax
 
-        return cls(cfg, kmax_state_dict_from_jax(variables), device)
+        return cls(cfg, kmax_state_dict_from_jax(variables), device,
+                   compute_dtype)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: KMaxConfig = None,
-                        device="cuda") -> "KmaxSegmenter":
+                        device="cuda",
+                        compute_dtype=None) -> "KmaxSegmenter":
         """Converted weights: the pickle that either package's
         cli/convert_kmax writes ({"format": "sai_kmax_variables", "config",
         "variables"}; an explicit `cfg` wins over the embedded one), or a
         bare variables pickle, read as ConvNeXt-L unless `cfg` says
-        otherwise. Runs in full f32, as every KmaxSegmenter does."""
+        otherwise. f32 unless `compute_dtype` says otherwise, as the JAX
+        package's `from_checkpoint`."""
         import pickle
 
         with open(path, "rb") as f:
@@ -707,7 +763,8 @@ class KmaxSegmenter:
                 cfg = KMaxConfig(backbone=ConvNeXtConfig(**bb), **d)
             variables = variables["variables"]
         return cls.from_jax_params(cfg or KMAX_CONVNEXT_LARGE, variables,
-                                   device=device)
+                                   device=device,
+                                   compute_dtype=compute_dtype)
 
     def _test_shape(self, H: int, W: int):
         """(new_h, new_w, padded_h, padded_w): long edge to
@@ -729,8 +786,8 @@ class KmaxSegmenter:
         new_h, new_w, pad_h, pad_w = self._test_shape(H, W)
         imgs = prep_batch(rgbs, new_h, new_w, pad_h, pad_w)
         cls, masks = self.model(imgs)
-        masks = masks[:, :-(-new_h // 4), :-(-new_w // 4)]
-        cat, seg = panoptic_inference_batch(cls, masks, self.cfg)
+        masks = masks[:, :-(-new_h // 4), :-(-new_w // 4)].float()
+        cat, seg = panoptic_inference_batch(cls.float(), masks, self.cfg)
         return resize_nearest_int2(cat, seg, (H, W))
 
     def run_on_batch_panoptic(self, rgbs):

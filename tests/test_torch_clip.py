@@ -1,7 +1,9 @@
 """The port's CLIP towers, tiling and text/query engine against the JAX
 package, with the JAX package's random weights carried across
 (models/clip/convert.py). Tolerance: 1e-4 absolute on embeddings of the
-tiny config (f32 on both sides; LayerNorm and matmul sum orders differ)."""
+tiny config (f32 on both sides; LayerNorm and matmul sum orders differ);
+the bf16 towers against the JAX package's compute_dtype=jnp.bfloat16
+within 4 bf16 ulps of the largest magnitude."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +12,7 @@ import torch
 
 from spatially_aware_ai_tpu.models.clip.engine import ClipEngine as JaxEngine
 from spatially_aware_ai_tpu.query import text as JQ
+from spatially_aware_ai_tpu_torch.models.attention import max_bf16_ulps
 from spatially_aware_ai_tpu_torch.models.clip.engine import (
     TINY_CONFIG,
     ClipEngine,
@@ -241,3 +244,56 @@ def test_patch_tokens_unfolds_and_quick_gelu_match_jax(engines):
     np.testing.assert_allclose(TMOD.quick_gelu(torch.from_numpy(x)).numpy(),
                                np.asarray(JMOD.quick_gelu(jnp.asarray(x))),
                                atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def bf16_engines(engines):
+    """The `engines` weights with compute_dtype bf16 in both packages."""
+    jeng, teng = engines
+    params = jax.tree_util.tree_map(np.asarray, jeng.params)
+    return (JaxEngine(jeng.cfg, jeng.params, compute_dtype=jnp.bfloat16),
+            ClipEngine.from_jax_params(jeng.cfg, params,
+                                       compute_dtype=torch.bfloat16,
+                                       device="cpu"))
+
+
+def test_bf16_towers_match_jax_bf16(engines, bf16_engines):
+    """Image and text embeddings of the bf16 towers against the JAX
+    package's ClipEngine(compute_dtype=jnp.bfloat16): within 4 bf16 ulps of
+    the largest magnitude (the two round at other points inside each block:
+    the tiny towers read 1.5 and 2.8), in f32, and not the f32 engine's."""
+    _, tf32 = engines
+    jeng, teng = bf16_engines
+    imgs = RNG.normal(size=(3, 224, 224, 3)).astype(np.float32)
+    want = np.asarray(jeng.encode_image(jnp.asarray(imgs)))
+    got = teng.encode_image(torch.from_numpy(imgs))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert max_bf16_ulps(got, want) <= 4.0
+    assert not torch.equal(got, tf32.encode_image(torch.from_numpy(imgs)))
+    texts = ["a red box", "a chair", "the floor"]
+    want = np.asarray(jeng.text_inference(texts))
+    got = np.asarray(teng.text_inference(texts))
+    assert max_bf16_ulps(got, want) <= 4.0
+    assert not np.array_equal(got, tf32.text_inference(texts))
+
+
+@pytest.mark.parametrize("shape,ps,stride", [
+    ((2, 384, 512, 3), 256, 128),   # resize-once fast prep (downscale)
+    ((2, 72, 96, 3), 48, 24),       # per-patch path (upscale)
+])
+def test_bf16_tiled_features_match_jax_bf16(bf16_engines, shape, ps,
+                                            stride):
+    """The tiler with prep in bf16 (`prep_dtype`, the JAX package's
+    tiling.py) and the bf16 tower: within 4 bf16 ulps of the JAX package's
+    bf16 features (2.3 read), every patch's feature by cosine >= 0.9999."""
+    jeng, teng = bf16_engines
+    imgs = RNG.uniform(size=shape).astype(np.float32)
+    want = np.asarray(jeng.img_inference_tiled_batch(jnp.asarray(imgs), ps,
+                                                     stride))
+    got = teng.img_inference_tiled_batch(torch.from_numpy(imgs), ps,
+                                         stride).numpy()
+    assert got.shape == want.shape
+    assert max_bf16_ulps(got, want) <= 4.0
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    assert cos.min() >= 0.9999

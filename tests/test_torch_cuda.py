@@ -2,7 +2,8 @@
 paint, B4 tile sample, B5 attention) against their plain PyTorch versions
 on the card, and the wrappers' dispatch; the port's f32 forwards (kMaX,
 CLIP, DGCNN) against the caller's TF32 flags; the DGCNN on the card
-against the CPU.
+against the CPU; the small kMaX in bf16 on the card against the CPU, its
+first-index argmax on tied bf16 logits and its batch-split bits.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with a card and no JAX:
@@ -153,6 +154,7 @@ def test_splat_kernel_routes_on_card(F, Py, Px, C):
     ("quick_gelu", 1e-5, False, torch.float32, 64, 131),   # tiny CLIP
     ("gelu", 1e-6, True, torch.float32, 192, 45),          # ConvNeXt
     ("gelu", 1e-6, True, torch.bfloat16, 384, 45),
+    ("gelu", 1e-6, True, torch.bfloat16, 192, 1003),       # ConvNeXt os4
 ])
 def test_ln_mlp_kernel_on_card(act, eps, with_gamma, dtype, D, M):
     """Tolerances as chip_smoke.py: f32 3e-4 abs, no rel term (3xTF32
@@ -472,6 +474,31 @@ def test_attention_kernel_tokens_on_card(T_, causal, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_at_the_text_towers_shape_on_card(dtype):
+    """B5 at the shape the text tower gives it on the main paths (3
+    prompts, 8 heads, T=77, causal), in f32 and in bf16 (the bf16
+    engine's): f32 within 1e-5, bf16 within 2 bf16 ulps of each row's
+    largest output; one count per launch."""
+    from spatially_aware_ai_tpu_torch.core.device import full_f32
+
+    dev = _card()
+    B, H, T_ = 3, 8, 77
+    q, k, v = _qkv(B, H, T_, dtype, dev, np.random.default_rng(77), "view")
+    n0 = A.launches
+    got = A.attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert A.launches == n0 + 1 and got.dtype == dtype
+    with full_f32():
+        want = A.attention_plain(q, k, v, True)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        assert float(A.bf16_ulps(got.view(B, T_, H, 64),
+                                 want.view(B, T_, H, 64)).max()) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_takes_unaligned_views(dtype):
     """Head views that start 4 bytes (f32) or 2 bytes (bf16) past a
     16-byte boundary, which 16-byte cp.async cannot read: the kernel's
@@ -566,10 +593,11 @@ def test_full_f32_pins_and_restores_the_callers_flags(state):
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def _small_kmax(dev):
+def _small_kmax(dev, compute_dtype=None):
     """A small kMaX the card's kernels take (ConvNeXt depths 1, 1, 2, 1 at
     widths 64-256, the tiny decoder), random weights from seed 0, with the
-    class head x20 and the mask-logit BN x100 so that frames are painted."""
+    class head x20 and the mask-logit BN x100 so that frames are painted,
+    in `compute_dtype` (f32 by default)."""
     import dataclasses
 
     from spatially_aware_ai_tpu_torch.models.kmax import model as KM
@@ -579,13 +607,137 @@ def _small_kmax(dev):
     cfg = dataclasses.replace(
         KM.KMAX_TINY_TEST,
         backbone=ConvNeXtConfig(depths=(1, 1, 2, 1), dims=(64, 128, 192, 256)))
-    seg = KM.KmaxSegmenter.random(cfg, seed=0, device=dev)
+    seg = KM.KmaxSegmenter.random(cfg, seed=0, device=dev,
+                                  compute_dtype=compute_dtype)
     pred = seg.model.sem_seg_head.predictor
     with torch.no_grad():
         pred._transformer_class_head.weight.mul_(20.0)
         pred._transformer_class_head.bias.mul_(20.0)
         pred._pixel_space_mask_batch_norm.weight.mul_(100.0)
     return seg
+
+
+@pytest.mark.cuda
+def test_small_kmax_bf16_card_matches_cpu():
+    """The small kMaX in bf16 (compute_dtype) on the card against the CPU
+    from one state dict, unit by unit as chip_smoke's crosscheck_kmax
+    (models/kmax/diagnostics.py): every unit call of the CPU's forward run
+    again on the card on the CPU's inputs, within UNIT_KINDS' limit (2
+    bf16 ulps of the output's largest magnitude, or twice the unit's own
+    bf16 rounding on those inputs where that is more), with the ConvNeXt
+    layer scales at 0.1 so that B2 shows in a block's output; a ConvBN
+    whose BN scale is 5% off fails it. Whole forward, each k-means
+    assignment taken from the CPU's run: class and mask logits in bf16,
+    finite; B2 launched once per ConvNeXt block."""
+    import copy
+
+    from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
+    from spatially_aware_ai_tpu_torch.models.kmax import diagnostics as D
+    from spatially_aware_ai_tpu_torch.models.kmax import model as KM
+
+    dev = _card()
+    bf = torch.bfloat16
+    small = _small_kmax("cpu", bf)
+    sd = {k: torch.full_like(v, 0.1) if k.endswith(".gamma") else v
+          for k, v in small.model.state_dict().items()}
+    cpu, card = (KM.KmaxSegmenter(small.cfg, sd, device=d, compute_dtype=bf)
+                 for d in ("cpu", dev))
+    ds = SyntheticSceneDataset(num_frames=2, width=128, height=96)
+    rgbs = torch.from_numpy(np.stack([ds[i].rgb for i in range(2)]))
+    new_h, new_w, pad_h, pad_w = cpu._test_shape(96, 128)
+    imgs = KM.prep_batch(rgbs, new_h, new_w, pad_h, pad_w)
+    with torch.inference_mode():
+        with D.kmeans_logits(cpu.model) as recorded, \
+                D.unit_calls(cpu.model) as calls:
+            cpu.model(imgs)
+        dists = D.unit_distances(card.model, cpu.model, calls)
+        over = [d for d in dists if d[3] > d[5]]
+        assert not over, over[:5]
+        assert {d[0] for d in dists} == set(D.UNIT_KINDS)
+        _, unit, _, args, want = next(
+            c for c in calls if c[1].endswith("_pixel_space_head_last_convbn"))
+        broken = copy.deepcopy(card.model.get_submodule(unit))
+        broken.norm.weight.mul_(1.05)
+        limit = next(d[5] for d in dists if d[1] == unit)
+        assert A.max_bf16_ulps(broken(args[0].to(dev)), want) > limit
+        n0 = L.launches
+        with D.kmeans_logits(card.model, recorded):
+            got = card.model(imgs.to(dev))
+    assert L.launches == n0 + sum(card.cfg.backbone.depths)
+    assert all(g.dtype == bf and bool(torch.isfinite(g.float()).all())
+               for g in got)
+
+
+@pytest.mark.cuda
+def test_bf16_argmax_takes_the_first_tied_maximum_on_card():
+    """bf16 mask logits tie often; the k-means assignment takes the first
+    maximal index (jnp.argmax's rule) on the card as on the CPU, at the
+    full-width os8 shape ([20336, 128]) with rows that tie two, three or
+    all of the queries, and the pooled update of a k-means layer fed those
+    logits takes the same pixels into the same clusters on both."""
+    from spatially_aware_ai_tpu_torch.models.kmax import model as KM
+
+    dev = _card()
+    rng = np.random.default_rng(23)
+    P, N = 164 * 124, 128
+    logits = (0.1 * rng.normal(size=(P, N))).astype(np.float32)
+    rows = rng.choice(P, size=3000, replace=False)
+    for i, r in enumerate(rows):
+        k = (2, 3, N)[i % 3]
+        qs = rng.choice(N, size=k, replace=False)
+        # 0.5 + j * 2^-16 (j < 128) rounds to 0.5 in bf16
+        logits[r, qs] = 0.5 + np.arange(k) * 2.0 ** -16
+    lt = torch.from_numpy(logits).to(torch.bfloat16)
+    tied = lt == lt.amax(-1, keepdim=True)
+    first = torch.where(tied, torch.arange(N), N).amin(-1)
+    assert torch.equal(lt.argmax(-1), first)
+    assert torch.equal(lt.to(dev).argmax(-1).cpu(), first)
+    assert int(tied.sum(-1).max()) == N and int((tied.sum(-1) > 1).sum()) \
+        >= len(rows)
+
+    seg = KM.KmaxSegmenter.random(KM.KMAX_TINY_TEST, seed=0, device="cpu",
+                                  compute_dtype=torch.bfloat16)
+    lay = seg.model.sem_seg_head.transformer_decoder \
+        ._kmax_transformer_layers[0]
+    h, w = 4, 6
+    small = torch.from_numpy(logits[rows[:h * w], :16].reshape(1, h, w, 16)
+                             ).to(torch.bfloat16)
+    query = torch.from_numpy(rng.normal(size=(1, 16, 32)).astype(
+        np.float32)).to(torch.bfloat16)
+    pixel = torch.from_numpy(rng.normal(size=(1, h, w, 32)).astype(
+        np.float32)).to(torch.bfloat16)
+    with torch.inference_mode():
+        want = lay(query, pixel, small)
+        lay.to(dev)
+        got = lay(query.to(dev), pixel.to(dev), small.to(dev)).cpu()
+    assert A.max_bf16_ulps(got, want) <= 2.0
+
+
+@pytest.mark.cuda
+def test_small_kmax_bf16_logits_do_not_depend_on_the_batch_split():
+    """C14 in bf16 on the card: the small kMaX's logits of 4 frames in one
+    batch and in 2-frame slices are the same bits, and so are its fused
+    labels."""
+    from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
+    from spatially_aware_ai_tpu_torch.models.kmax import model as KM
+
+    dev = _card()
+    seg = _small_kmax(dev, torch.bfloat16)
+    ds = SyntheticSceneDataset(num_frames=4, width=128, height=96)
+    rgbs = torch.from_numpy(np.stack([ds[i].rgb for i in range(4)])).to(dev)
+    new_h, new_w, pad_h, pad_w = seg._test_shape(96, 128)
+    with torch.inference_mode():
+        imgs = KM.prep_batch(rgbs, new_h, new_w, pad_h, pad_w)
+        whole = seg.model(imgs)
+        parts = [seg.model(imgs[i:i + 2]) for i in (0, 2)]
+    for j in range(2):
+        assert whole[j].dtype == torch.bfloat16
+        assert torch.equal(whole[j], torch.cat([p[j] for p in parts]))
+    labels = seg.run_on_batch_fused_labels(rgbs, as_numpy=False)
+    split = torch.cat([seg.run_on_batch_fused_labels(rgbs[i:i + 2],
+                                                     as_numpy=False)
+                       for i in (0, 2)])
+    assert (labels != KM.NULL_ID).any() and torch.equal(labels, split)
 
 
 @pytest.mark.cuda

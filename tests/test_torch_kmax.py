@@ -4,7 +4,10 @@ and the tiny KMaxDeepLab forward within 1e-4 abs; detectron2-named weights
 loaded and converted both ways; the claim paint (B3's plain version vs the
 Pallas kernel in interpret mode), panoptic inference, the nearest resize
 and the seam nulling exactly; and fuse_scan through the device-fused
-labels branch with the same label histogram and TSDF weights."""
+labels branch with the same label histogram and TSDF weights. Then the
+model in bf16 against the JAX package's compute_dtype=jnp.bfloat16, module
+by module and whole (each k-means assignment shared), in bf16 ulps of the
+largest magnitude."""
 import functools
 
 import jax
@@ -26,12 +29,14 @@ from spatially_aware_ai_tpu.pipeline import (
     fuse_scan as jax_fuse_scan,
 )
 from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
+from spatially_aware_ai_tpu_torch.models.attention import max_bf16_ulps
 from spatially_aware_ai_tpu_torch.models.clip.engine import ClipEngine
 from spatially_aware_ai_tpu_torch.models.kmax import convnext as TC
 from spatially_aware_ai_tpu_torch.models.kmax import model as TM
 from spatially_aware_ai_tpu_torch.models.kmax.convert import (
     kmax_state_dict_from_jax,
 )
+from spatially_aware_ai_tpu_torch.models.kmax.diagnostics import kmeans_logits
 from spatially_aware_ai_tpu_torch.models.kmax.paint import paint_masks_plain
 from spatially_aware_ai_tpu_torch.pipeline import FusionConfig, fuse_scan
 
@@ -693,3 +698,324 @@ def test_panoptic_class_map_matches_jax(out_hw):
     assert got.dtype == torch.int32 and tuple(got.shape) == out_hw
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got.numpy() != 133).any()
+
+
+# ---------------------------------------------------------------------------
+# bf16: the JAX package's `compute_dtype=jnp.bfloat16`
+#
+# Tolerances are in bf16 ulps of the compared tensor's largest magnitude
+# (`max_bf16_ulps`). XLA on the CPU keeps some bf16 intermediates of a
+# fusion in f32 where the port rounds at each module's output, so one
+# module reads up to 1-2 ulps from the JAX package's; a chain of modules
+# sums them.
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _bf16(a):
+    """A numpy array rounded to bf16 (both packages round to nearest even):
+    (torch bf16 tensor, jnp bf16 array)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(BF16)
+    return t, jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32)) \
+        if not isinstance(a, torch.Tensor) else a.float().numpy()
+
+
+@pytest.fixture(scope="module")
+def bf16_forward():
+    """One JAX bf16 forward of the tiny model on 2 frames (seed-0
+    variables, BN statistics moved), every module's output and every
+    predictor call kept; and the port's bf16 model on the same weights."""
+    x = np.random.default_rng(3).normal(size=(2, 64, 96, 3)).astype(
+        np.float32)
+    v = _jax_variables(0)
+    jm = JM.KMaxDeepLab(CFG, dtype=jnp.bfloat16)
+    (cj, mj), st = jax.jit(lambda v, x: jm.apply(
+        v, x, capture_intermediates=lambda m, n: True,
+        mutable=["intermediates"]))(v, jnp.asarray(x))
+    m = TM.KMaxDeepLab(CFG, dtype=BF16)
+    m.load_state_dict(kmax_state_dict_from_jax(v))
+    return dict(x=x, v=v, cls=_f32(cj), masks=_f32(mj), model=m.eval(),
+                inter=jax.tree_util.tree_map(_f32, st["intermediates"]))
+
+
+def _jax_out(inter, *path, call=0):
+    t = inter
+    for p in path:
+        t = t[p]
+    return t["__call__"][call] if "__call__" in t else t
+
+
+def test_frozen_bn_and_convbn_bf16_match_jax(bf16_forward):
+    """FrozenBatchNorm (bf16 statistics on a bf16 input, and on an f32
+    input as the axial attention's output BN takes it) and ConvBN (1x1,
+    3x3 dilated + gelu, depthwise 5x5 + gelu, the query conv1d) against
+    the JAX modules with dtype=bf16 on the same bf16 inputs: within 1 ulp
+    (one rounding apart at most: the port rounds the conv's output before
+    the BN, XLA may not)."""
+    v = jax.tree_util.tree_map(jnp.asarray, bf16_forward["v"]["params"])
+    m = bf16_forward["model"]
+    pd, pred = m.sem_seg_head.pixel_decoder, m.sem_seg_head.predictor
+    td = m.sem_seg_head.transformer_decoder
+    rng = np.random.default_rng(11)
+    xt, xj = _bf16(rng.normal(size=(2, 5, 7, 64)))
+    bn = v["pixel_decoder"]["aspp"]["conv1"]["bn"]
+    want = JM.FrozenBatchNorm(dtype=jnp.bfloat16).apply(
+        {"params": bn}, xj[..., :32])
+    got = pd._aspp._conv1.norm(xt[..., :32])
+    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+    assert max_bf16_ulps(got.float(), _f32(want)) <= 1.0
+    xf = rng.normal(size=(2, 5, 7, 32)).astype(np.float32)
+    want = JM.FrozenBatchNorm(dtype=jnp.bfloat16).apply(
+        {"params": bn}, jnp.asarray(xf))
+    got = pd._aspp._conv1.norm(torch.from_numpy(xf), BF16)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    assert max_bf16_ulps(got, _f32(want)) <= 1.0
+    cases = [
+        (pd._aspp._conv0, v["pixel_decoder"]["aspp"]["conv0"],
+         dict(features=32, kernel=(1, 1), act="gelu"), xt, xj),
+        (pd._aspp._conv2, v["pixel_decoder"]["aspp"]["conv2"],
+         dict(features=32, kernel=(3, 3), dilation=2, act="gelu"), xt, xj),
+    ]
+    pt, pj = _bf16(rng.normal(size=(2, 6, 9, 32)))
+    cases.append((pred._pixel_space_head_conv0bnact,
+                  v["predictor"]["pixel_conv0"],
+                  dict(features=32, kernel=(5, 5), groups=32, act="gelu"),
+                  pt, pj))
+    qt, qj = _bf16(rng.normal(size=(2, 16, 32)))
+    cases.append((td._kmax_transformer_layers[0]._query_qkv_conv_bn,
+                  v["kmax_layer0"]["qkv"], dict(features=96, kernel=(1,)),
+                  qt, qj))
+    for mod, p, kw, a, b in cases:
+        want = JM.ConvBN(dtype=jnp.bfloat16, **kw).apply({"params": p}, b)
+        got = mod(a)
+        assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+        assert max_bf16_ulps(got.float(), _f32(want)) <= 1.0, kw
+
+
+def test_convnext_block_bf16_matches_jax_fused(fresh_jax_programs,
+                                               monkeypatch):
+    """D=64 in bf16: B2's plain version vs the JAX package's fused block
+    (SAI_FUSED_MLP=1, the Pallas kernel in interpret mode), both with LN
+    statistics and accumulation in f32 and the weights, LN output and
+    activation rounded to bf16: within 1 ulp (the depthwise conv's bias is
+    added before its rounding here, after it in flax)."""
+    monkeypatch.setenv("SAI_FUSED_MLP", "1")
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 9, 11, 64)).astype(np.float32)
+    _, v = _convnext_block_params(x, rng)
+    p = v["params"]
+    jblk = JC.ConvNeXtBlock(64, 1e-6, dtype=jnp.bfloat16, fused_mlp=True,
+                            shift_dwconv=False)
+    blk = TC.ConvNeXtBlock(64)
+    blk.load_state_dict({
+        "dwconv.weight": torch.from_numpy(
+            p["dwconv"]["kernel"].transpose(3, 2, 0, 1).copy()),
+        "dwconv.bias": torch.from_numpy(p["dwconv"]["bias"].copy()),
+        "norm.weight": torch.from_numpy(p["norm"]["scale"].copy()),
+        "norm.bias": torch.from_numpy(p["norm"]["bias"].copy()),
+        "pwconv1.weight": torch.from_numpy(p["pwconv1"]["kernel"].T.copy()),
+        "pwconv1.bias": torch.from_numpy(p["pwconv1"]["bias"].copy()),
+        "pwconv2.weight": torch.from_numpy(p["pwconv2"]["kernel"].T.copy()),
+        "pwconv2.bias": torch.from_numpy(p["pwconv2"]["bias"].copy()),
+        "gamma": torch.from_numpy(p["gamma"].copy()),
+    })
+    xt, xj = _bf16(x)
+    with torch.no_grad():
+        got = blk(xt)
+    want = jblk.apply(jax.tree_util.tree_map(jnp.array, v), xj)
+    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+    assert max_bf16_ulps(got.float(), _f32(want)) <= 1.0
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+def test_axial_attention_bf16_matches_jax(bf16_forward, axis):
+    """One axial attention of the os16 block on a bf16 input: the logits
+    in bf16, then f32 from the scale on (the JAX package divides by a
+    numpy scalar), the output BN's parameters in bf16 on the f32 sum:
+    an f32 output within 2 bf16 ulps of the JAX module's (a logit one
+    rounding apart moves its softmax row)."""
+    v = jax.tree_util.tree_map(
+        jnp.asarray,
+        bf16_forward["v"]["params"]["pixel_decoder"]["stage_os16_block0"])
+    blk = bf16_forward["model"].sem_seg_head.pixel_decoder._stages[1][0]
+    name = {1: "attn_h", 2: "attn_w"}[axis]
+    xt, xj = _bf16(np.random.default_rng(13).normal(size=(2, 6, 9, 12)))
+    want = JM.AxialAttention(12, 4, axis=axis, span=16,
+                             dtype=jnp.bfloat16).apply(
+        {"params": v[name]}, xj)
+    with torch.no_grad():
+        got = getattr(blk, f"_{name}")(xt)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    assert max_bf16_ulps(got, _f32(want)) <= 2.0
+
+
+def test_kmax_layer_bf16_matches_jax_on_its_mask_logits(bf16_forward):
+    """Each k-means layer of the JAX forward, fed that forward's own
+    query, pixel features and mask logits (so that no argmax can flip
+    before it): the port's layer within 2 ulps."""
+    inter, m = bf16_forward["inter"], bf16_forward["model"]
+    layers = m.sem_seg_head.transformer_decoder._kmax_transformer_layers
+    mlogs = inter["predictor"]["mask_logits"]
+    centers = bf16_forward["v"]["params"]["cluster_centers"]
+    for li, lv in enumerate(("os32", "os16", "os8")):
+        query = (np.broadcast_to(centers, (2, *centers.shape)) if li == 0
+                 else _jax_out(inter, f"kmax_layer{li - 1}"))
+        with torch.no_grad():
+            got = layers[li](_bf16(query)[0],
+                             _bf16(_jax_out(inter, f"pixel_space_{lv}"))[0],
+                             _bf16(mlogs[li])[0])
+        assert got.dtype == BF16
+        assert max_bf16_ulps(got.float(),
+                             _jax_out(inter, f"kmax_layer{li}")) <= 2.0
+
+
+def test_bf16_argmax_takes_the_first_tied_maximum(bf16_forward):
+    """bf16 mask logits tie often; jnp.argmax takes the first maximal
+    index, and so does the port's assignment: a hand-built map whose
+    pixels tie two, three or all of the queries (values equal in bf16, not
+    in f32) gives the JAX layer's pooled update exactly."""
+    N, h, w = 16, 4, 6
+    rng = np.random.default_rng(14)
+    logits = rng.normal(size=(1, h, w, N)).astype(np.float32) * 0.1
+    top = np.float32(0.5)
+    ties = [(0, 0, [3, 9]), (0, 1, [9, 3, 15]), (1, 2, list(range(N))),
+            (2, 3, [0, 1]), (3, 5, [14, 15])]
+    for r, c, qs in ties:
+        for j, q in enumerate(qs):
+            # 0.5 + j * 2^-14 (j < 16) rounds to 0.5 in bf16
+            logits[0, r, c, q] = top + np.float32(j) * np.float32(2 ** -14)
+    lt, lj = _bf16(logits)
+    first = np.asarray(jnp.argmax(lj.reshape(-1, N), axis=-1))
+    np.testing.assert_array_equal(lt.reshape(-1, N).argmax(-1).numpy(),
+                                  first)
+    for r, c, qs in ties:
+        assert first[r * w + c] == min(qs)
+    v = jax.tree_util.tree_map(jnp.asarray,
+                               bf16_forward["v"]["params"]["kmax_layer0"])
+    lay = bf16_forward["model"].sem_seg_head.transformer_decoder \
+        ._kmax_transformer_layers[0]
+    qt, qj = _bf16(rng.normal(size=(1, N, 32)))
+    pt, pj = _bf16(rng.normal(size=(1, h, w, 32)))
+    want = JM.KMaxTransformerLayer(CFG, dtype=jnp.bfloat16).apply(
+        {"params": v}, qj, pj, lj)
+    with torch.no_grad():
+        got = lay(qt, pt, lt)
+    assert max_bf16_ulps(got.float(), _f32(want)) <= 2.0
+
+
+def _forced_forward(model, x, mlogs):
+    """The port's forward with each k-means layer's assignment taken from
+    the JAX forward's mask logits `mlogs` (per layer, [B, h, w, N]), so
+    that a flipped argmax cannot carry a rounding difference into the
+    cluster centres."""
+    replay = [torch.from_numpy(m[f:f + 1]) for f in range(len(x))
+              for m in mlogs[:len(model.sem_seg_head.transformer_decoder
+                                  ._kmax_transformer_layers)]]
+    with torch.no_grad(), kmeans_logits(model, replay):
+        return model(torch.from_numpy(x))
+
+
+def _top2_margin_ulps(a):
+    """Each row's top-2 gap over the last axis, in bf16 ulps of the whole
+    array's largest magnitude."""
+    s = np.sort(a, axis=-1)
+    top = np.abs(a).max()
+    return (s[..., -1] - s[..., -2]) / 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def test_kmax_bf16_forward_matches_jax(bf16_forward):
+    """The whole tiny model in bf16, each k-means assignment taken from the
+    JAX forward's own mask logits: class and mask logits within 48 ulps of
+    their largest magnitudes (about forty modules in a chain, each 1-2 ulps
+    from the JAX package's; seeds 0-3 read 3-33 and 8-36). The categories,
+    each pixel's query and each query's class, agree wherever JAX's top-2
+    margin exceeds 16 ulps (a logit's own difference is not a margin's:
+    over those seeds the categories differed only at margins up to 11.5).
+    Free running, the port's bf16 logits are finite and in bf16 (on random
+    weights' near-tied logits a flipped k-means argmax moves them about as
+    far from the JAX package's bf16 as its own f32 forward is from it)."""
+    d = bf16_forward
+    cls, masks = _forced_forward(d["model"], d["x"],
+                                 d["inter"]["predictor"]["mask_logits"])
+    assert cls.dtype == BF16 and masks.dtype == BF16
+    assert cls.shape == (2, 16, 134) and masks.shape == (2, 16, 24, 16)
+    cls, masks = cls.float().numpy(), masks.float().numpy()
+    assert max_bf16_ulps(cls, d["cls"]) <= 48.0
+    assert max_bf16_ulps(masks, d["masks"]) <= 48.0
+    covered = []
+    for got, want in ((cls, d["cls"]), (masks, d["masks"])):
+        sure = _top2_margin_ulps(want) > 16.0
+        covered.append(int(sure.sum()))
+        np.testing.assert_array_equal(got.argmax(-1)[sure],
+                                      want.argmax(-1)[sure])
+    assert covered[0] >= 1 and covered[1] >= 0.2 * masks[..., 0].size
+    with torch.no_grad():
+        free = d["model"](torch.from_numpy(d["x"]))
+    assert all(t.dtype == BF16 and bool(torch.isfinite(t.float()).all())
+               for t in free)
+
+
+def test_bf16_logits_do_not_depend_on_the_batch_split():
+    """C14 in bf16: a frame's logits and fused labels are the same bits in
+    a batch of 4 and in 2-frame slices."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4, 64, 96, 3)).astype(np.float32)
+    v = _jax_variables(2)
+    seg = TM.KmaxSegmenter.from_jax_params(CFG, v, device="cpu",
+                                           compute_dtype=BF16)
+    with torch.inference_mode():
+        whole = seg.model(torch.from_numpy(x))
+        parts = [seg.model(torch.from_numpy(x[i:i + 2])) for i in (0, 2)]
+    for j in range(2):
+        assert whole[j].dtype == BF16
+        assert torch.equal(whole[j], torch.cat([p[j] for p in parts]))
+    rgb = rng.uniform(size=(4, 72, 96, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        seg.run_on_batch_fused_labels(rgb),
+        np.concatenate([seg.run_on_batch_fused_labels(rgb[i:i + 2])
+                        for i in (0, 2)]))
+
+
+def test_segmenter_compute_dtype(tmp_path):
+    """compute_dtype reaches the model through every constructor; None is
+    f32; anything but f32 and bf16 is refused; the bf16 segmenter's
+    panoptic maps are int32 of the frame's size, painted, with segments."""
+    import pickle
+
+    v = _painting_variables(1)
+    sd = kmax_state_dict_from_jax(v)
+    path = tmp_path / "kmax.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(v, f)
+    segs = {
+        "init": TM.KmaxSegmenter(CFG, sd, device="cpu", compute_dtype=BF16),
+        "random": TM.KmaxSegmenter.random(CFG, device="cpu",
+                                          compute_dtype=BF16),
+        "tiny": TM.KmaxSegmenter.tiny(device="cpu", compute_dtype=BF16),
+        "from_jax_params": TM.KmaxSegmenter.from_jax_params(
+            CFG, v, device="cpu", compute_dtype=BF16),
+        "from_checkpoint": TM.KmaxSegmenter.from_checkpoint(
+            str(path), CFG, device="cpu", compute_dtype=BF16),
+    }
+    for name, seg in segs.items():
+        assert seg.compute_dtype == BF16 and seg.model.dtype == BF16, name
+        assert all(p.dtype == torch.float32
+                   for p in seg.model.parameters()), name
+    assert TM.KmaxSegmenter(CFG, sd, device="cpu").model.dtype == \
+        torch.float32
+    assert TM.KmaxSegmenter.from_checkpoint(
+        str(path), CFG, device="cpu").compute_dtype == torch.float32
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TM.KmaxSegmenter(CFG, sd, device="cpu", compute_dtype=torch.float16)
+    rgbs = np.random.default_rng(7).uniform(size=(2, 72, 96, 3)).astype(
+        np.float32)
+    cat, seg_ids = segs["init"].run_on_batch_panoptic(rgbs)
+    assert cat.dtype == np.int32 and cat.shape == (2, 72, 96)
+    assert (cat != 133).mean() > 0.2 and seg_ids.max() >= 2
+    np.testing.assert_array_equal(
+        segs["from_checkpoint"].run_on_batch_panoptic(rgbs)[0], cat)

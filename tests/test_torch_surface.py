@@ -6,7 +6,10 @@ RENAMED (whose target must exist), or in NO_COUNTERPART with the reason it
 has none. Every name a JAX `__init__` exports imports from the port's
 `__init__`, or is listed the same way. Neither table may go stale, and
 NO_COUNTERPART holds only names of the JAX stack (XLA, jit, Pallas,
-jax.sharding, flax), never a CLI, a native helper or a model function."""
+jax.sharding, flax), never a CLI, a native helper or a model function.
+Every parameter of a JAX function or method (`__init__` included) that has
+a counterpart is a parameter of that counterpart, or is listed in
+PARAM_RENAMED or PARAM_NO_COUNTERPART the same way."""
 import ast
 import importlib
 import os
@@ -84,6 +87,92 @@ NO_COUNTERPART = {
         "a jit shape bucket for the flat voxel buffers",
     "meshing/extract.py::warm_vertex_samplers":
         "compiles the jitted vertex samplers ahead of the first mesh",
+}
+
+# "module::function(parameter)" of the JAX package -> the port's name for
+# the same parameter
+PARAM_RENAMED = {
+    "core/upsample.py::upsample_depth_u16_device(depth_u16)": "depth",
+    "grid/fusion.py::blocked_label_splat(valids)": "votes",
+    "models/clip/engine.py::ClipEngine.__init__(params)": "state_dict",
+    "models/kmax/model.py::KmaxSegmenter.__init__(params)": "state_dict",
+    "models/clip/engine.py::ClipEngine.img_inference_tiled_depthscaled(img)":
+        "imgs",
+    "models/clip/tiling.py::tiled_image_features_depthscaled(img)": "imgs",
+    "pipeline.py::labels_for_chunk(rgb_chunk)": "rgb_host",
+}
+
+_INTERPRET = "runs a Pallas kernel in interpret mode off the TPU"
+_PALLAS_TILE = "a Pallas VMEM tile size"
+_CAPACITY = ("a static-shape slot budget for XLA; the port compacts to the "
+             "exact count")
+_AXIS = ("the jax.sharding mesh axis name; a DeviceMesh has one shard axis")
+_XLA_BLOCK = ("the voxel block of an XLA lax.map that bounds a one-hot "
+              "transient; the port adds votes in place")
+_PARAMS = ("flax parameters passed to a pure function; the port's encode_fn "
+           "closes over its module's weights")
+_FUSED_STEM = ("the fused CLIP conv stem (SAI_FUSED_STEM), not yet ported: "
+               "ROADMAP A13")
+# "module::function(parameter)" of the JAX package with no counterpart in
+# the port, and why
+PARAM_NO_COUNTERPART = {
+    "grid/brick.py::integrate_frames_brick(capacity)": _CAPACITY,
+    "grid/brick.py::integrate_frames_brick(brick_capacity)": _CAPACITY,
+    "grid/fusion.py::integrate_frames_sparse(capacity)": _CAPACITY,
+    "parallel/sharded.py::make_sharded_integrate(capacity)": _CAPACITY,
+    "parallel/sharded.py::make_sharded_integrate(brick_capacity)": _CAPACITY,
+    "grid/fusion.py::blocked_label_splat(block_voxels)": _XLA_BLOCK,
+    "grid/fusion.py::einsum_feature_splat(block_voxels)": _XLA_BLOCK,
+    "grid/fusion.py::integrate_frames_pallas(tile)": _PALLAS_TILE,
+    "grid/fusion.py::integrate_frames_pallas(interpret)": _INTERPRET,
+    "grid/pallas_fusion.py::fused_feature_splat(tile)": _PALLAS_TILE,
+    "grid/pallas_fusion.py::fused_feature_splat(interpret)": _INTERPRET,
+    "grid/pallas_tiledma.py::tile_sample_nearest(interpret)": _INTERPRET,
+    "models/kmax/pallas_paint.py::paint_masks(interpret)": _INTERPRET,
+    "models/pallas_mlp.py::fused_ln_mlp(tm)": _PALLAS_TILE,
+    "models/pallas_mlp.py::fused_ln_mlp(th)": _PALLAS_TILE,
+    "models/pallas_mlp.py::fused_ln_mlp(interpret)": _INTERPRET,
+    "models/kmax/model.py::panoptic_inference_batch(use_pallas)":
+        "chooses the Pallas paint or XLA's loop; the port's batch path "
+        "always runs kernel B3",
+    "models/kmax/model.py::panoptic_inference_batch(interpret)": _INTERPRET,
+    "parallel/sharded.py::integrate_frames_sharded(use_pallas)":
+        "chooses the Pallas splat or XLA's einsum; the port's integrators "
+        "always run kernel B1",
+    "parallel/sharded.py::integrate_frames_sharded(pallas_tile)":
+        _PALLAS_TILE,
+    "parallel/sharded.py::integrate_frames_sharded(pallas_interpret)":
+        _INTERPRET,
+    "parallel/sharded.py::make_sharded_integrate(pallas_tile)": _PALLAS_TILE,
+    "parallel/sharded.py::make_sharded_integrate(pallas_interpret)":
+        _INTERPRET,
+    "parallel/mesh.py::make_mesh(axis)": _AXIS,
+    "parallel/sharded.py::integrate_frames_sharded(axis)": _AXIS,
+    "parallel/sharded.py::make_sharded_integrate(axis)": _AXIS,
+    "parallel/sharded.py::make_sharded_fusion_step(axis)": _AXIS,
+    "parallel/sharded.py::shard_grid(axis)": _AXIS,
+    "parallel/sharded.py::make_sharded_fusion_step(encode_image_fn)":
+        "a jitted flax encode for shard_map; the port takes the engine, "
+        "one replica per device",
+    "parallel/multihost.py::build_batch(jnp)":
+        "the JAX module handed in so that the harness imports JAX late; "
+        "the port takes the device",
+    "parallel/multihost.py::build_batch(FrameBatch)":
+        "the JAX FrameBatch class handed in with jnp; the port imports its "
+        "own",
+    "models/kmax/model.py::KmaxSegmenter.__init__(seed)":
+        "draws flax random weights when params is None; the port's "
+        "KmaxSegmenter.random(seed=) does",
+    "models/clip/tiling.py::tiled_image_features(params)": _PARAMS,
+    "models/clip/tiling.py::tiled_image_features_batch(params)": _PARAMS,
+    "models/clip/tiling.py::tiled_image_features_depthscaled(params)":
+        _PARAMS,
+    "models/clip/tiling.py::tiled_image_features_batch(conv_kernel_fn)":
+        _FUSED_STEM,
+    "models/clip/tiling.py::tiled_image_features_batch(encode_tokens_fn)":
+        _FUSED_STEM,
+    "models/clip/tiling.py::tiled_image_features_batch(conv_patch)":
+        _FUSED_STEM,
 }
 
 # names this slice ported: none of them may hide in NO_COUNTERPART
@@ -222,3 +311,66 @@ def test_init_exports(init):
         if not hasattr(port, name):
             missing.append(name)
     assert not missing, f"{init}: {missing}"
+
+
+def _signatures(path):
+    """Parameter names (self / cls dropped) of a module's public functions
+    and of its public classes' public methods and `__init__`, by
+    "name" / "Class.method"."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+
+    def params(fn):
+        a = fn.args
+        return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+                if x.arg not in ("self", "cls")]
+
+    fns = (ast.FunctionDef, ast.AsyncFunctionDef)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, fns) and not node.name.startswith("_"):
+            out[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for m in node.body:
+                if isinstance(m, fns) and (not m.name.startswith("_")
+                                           or m.name == "__init__"):
+                    out[f"{node.name}.{m.name}"] = params(m)
+    return out
+
+
+def test_every_jax_parameter_has_a_counterpart():
+    """How a missing option hides from the name check (a KmaxSegmenter
+    without the JAX package's compute_dtype): each parameter of a JAX
+    function or method whose counterpart exists is one of the
+    counterpart's parameters, renamed in PARAM_RENAMED (whose target must
+    be a parameter there), or in PARAM_NO_COUNTERPART with its reason;
+    neither table goes stale."""
+    port = {rel: _signatures(os.path.join(PORT_PKG, rel))
+            for rel in _modules(PORT_PKG)}
+    missing, used = [], set()
+    for rel in _modules(JAX_PKG):
+        for name, params in sorted(
+                _signatures(os.path.join(JAX_PKG, rel)).items()):
+            key = f"{rel}::{name}"
+            mod, new = (RENAMED[key].split("::") if key in RENAMED
+                        else (MIRROR.get(rel, rel), name))
+            have = port.get(mod, {}).get(new)
+            if have is None:
+                continue
+            for p in params:
+                pkey = f"{key}({p})"
+                if pkey in PARAM_RENAMED:
+                    assert PARAM_RENAMED[pkey] in have, (pkey, have)
+                    used.add(pkey)
+                elif pkey in PARAM_NO_COUNTERPART:
+                    assert p not in have, (
+                        f"{pkey} has a counterpart now: take it out of "
+                        "PARAM_NO_COUNTERPART")
+                    used.add(pkey)
+                elif p not in have:
+                    missing.append(f"{pkey} (port: {mod}::{new}{have})")
+    assert not missing, "\n".join(missing)
+    stale = (set(PARAM_RENAMED) | set(PARAM_NO_COUNTERPART)) - used
+    assert not stale, sorted(stale)
+    for pkey, reason in PARAM_NO_COUNTERPART.items():
+        assert reason and "\n" not in reason, pkey

@@ -4,7 +4,7 @@
 
     python3 tools/c14_kmax_batch_probe.py [--long-edge 320] [--frames 8]
         [--step 2] [--packages port,jax] [--device cpu|cuda]
-        [--cudnn-pinned] [--per-frame] [--modules]
+        [--dtype f32|bf16] [--cudnn-pinned] [--per-frame] [--modules]
 
 kMaX-DeepLab ConvNeXt-L at full width with the port's random weights
 (`KmaxSegmenter.random`, seed 0), scaled as chip_smoke.py's kMaX phases
@@ -21,7 +21,8 @@ and mask logits, and the share of pixels whose panoptic category differs.
 Then the two packages' whole-batch outputs against each other.
 
 The port runs its own `KMaxDeepLab.forward` (which runs the head one frame
-at a time, the C14 repair), the k-means layers' inputs read by hooks.
+at a time, the C14 repair), the k-means layers' inputs read by hooks, in
+`--dtype` (the JAX package's compute_dtype; the JAX side stays f32).
 `--device cuda` runs the port alone on the card; `--cudnn-pinned` sets
 cuDNN's deterministic flag on and its benchmark flag off around the
 forwards; `--per-frame` runs the whole forward one frame at a time inside
@@ -73,7 +74,7 @@ def inputs(args):
     return cfg, model.state_dict(), imgs, (new_h, new_w)
 
 
-def port_stages(cfg, sd, imgs, device, per_frame=False):
+def port_stages(cfg, sd, imgs, device, per_frame=False, dtype=None):
     """The port's forward (`KMaxDeepLab.forward`), each k-means layer's
     mask-logit input recorded by a hook: [k-means layer mask logits...],
     class logits, mask logits, category map; one list per batch."""
@@ -82,7 +83,7 @@ def port_stages(cfg, sd, imgs, device, per_frame=False):
 
     from spatially_aware_ai_tpu_torch.models.kmax import model as KM
 
-    model = KM.KMaxDeepLab(cfg)
+    model = KM.KMaxDeepLab(cfg, dtype=dtype or torch.float32)
     model.load_state_dict(sd)
     model = model.to(device).eval().requires_grad_(False)
     layers = model.sem_seg_head.transformer_decoder._kmax_transformer_layers
@@ -103,12 +104,13 @@ def port_stages(cfg, sd, imgs, device, per_frame=False):
             cat, _ = KM.panoptic_inference_batch(
                 cls, masks[:, :crop[0], :crop[1]], cfg)
         mlogs = [torch.cat(rec) for rec in seen]
-        return [t.cpu().numpy() for t in mlogs + [cls, masks, cat]]
+        return [t.cpu().float().numpy() if t.is_floating_point()
+                else t.cpu().numpy() for t in mlogs + [cls, masks, cat]]
 
     return run
 
 
-def batch_variant_modules(cfg, sd, imgs, device, step):
+def batch_variant_modules(cfg, sd, imgs, device, step, dtype=None):
     """The modules of the port's model whose output on their whole-batch
     input differs from the concatenation of their outputs on its slices."""
     import torch
@@ -116,7 +118,7 @@ def batch_variant_modules(cfg, sd, imgs, device, step):
     from spatially_aware_ai_tpu_torch.core.device import full_f32
     from spatially_aware_ai_tpu_torch.models.kmax import model as KM
 
-    model = KM.KMaxDeepLab(cfg)
+    model = KM.KMaxDeepLab(cfg, dtype=dtype or torch.float32)
     model.load_state_dict(sd)
     model = model.to(device).eval().requires_grad_(False)
     F = imgs.shape[0]
@@ -138,6 +140,7 @@ def batch_variant_modules(cfg, sd, imgs, device, step):
                                   "type": type(mod).__name__,
                                   "max_abs": d,
                                   "scale": float(out.abs().max()),
+                                  "dtype": str(out.dtype),
                                   "input": list(inp[0].shape)})
             finally:
                 busy[0] = False
@@ -147,6 +150,45 @@ def batch_variant_modules(cfg, sd, imgs, device, step):
         mod.register_forward_hook(hook(name))
     with torch.inference_mode(), full_f32():
         model(imgs.to(device))
+        found += conv_ops(model, imgs.to(device), step)
+    return found
+
+
+def conv_ops(model, imgs, step):
+    """The backbone's convolutions and LayerNorms, which its modules call as
+    functions, each run on its whole-batch input and on slices: those whose
+    output differs (name, max abs difference, scale)."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models.kmax import convnext as CN
+
+    bb = model.backbone
+    x = imgs.to(model.dtype)
+    found = []
+
+    def check(name, fn, inp):
+        out = fn(inp)
+        parts = torch.cat([fn(inp[i:i + step])
+                           for i in range(0, inp.shape[0], step)])
+        d = float((parts.float() - out.float()).abs().max())
+        if d > 0:
+            found.append({"op": name, "max_abs": d,
+                          "scale": float(out.float().abs().max()),
+                          "input": list(inp.shape), "dtype": str(out.dtype)})
+        return out
+
+    for stage in range(4):
+        a, b = bb.downsample_layers[stage]
+        if stage == 0:
+            x = check("stem_conv", lambda t: CN.conv2d_nhwc(t, a), x)
+            x = check("stem_norm", lambda t: CN.layer_norm(b, t), x)
+        else:
+            x = check(f"down{stage}_norm", lambda t: CN.layer_norm(a, t), x)
+            x = check(f"down{stage}_conv", lambda t: CN.conv2d_nhwc(t, b), x)
+        for j, blk in enumerate(bb.stages[stage]):
+            check(f"stage{stage}.{j}.dwconv",
+                  lambda t: CN.conv2d_nhwc(t, blk.dwconv), x)
+            x = check(f"stage{stage}.{j}", blk, x)
     return found
 
 
@@ -218,6 +260,7 @@ def main(argv=None):
     ap.add_argument("--step", type=int, default=2)
     ap.add_argument("--packages", default="port,jax")
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--dtype", default="f32", choices=("f32", "bf16"))
     ap.add_argument("--cudnn-pinned", action="store_true")
     ap.add_argument("--per-frame", action="store_true")
     ap.add_argument("--modules", action="store_true")
@@ -228,12 +271,15 @@ def main(argv=None):
     if args.cudnn_pinned:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
     cfg, sd, imgs, (new_h, new_w) = inputs(args)
     if args.modules:
         found = batch_variant_modules(cfg, sd, imgs,
-                                      torch.device(args.device), args.step)
+                                      torch.device(args.device), args.step,
+                                      dtype)
         print(json.dumps({"probe": "c14_modules", "device": args.device,
-                          "input": list(imgs.shape), "step": args.step,
+                          "dtype": args.dtype, "input": list(imgs.shape),
+                          "step": args.step,
                           "batch_variant_modules": found}), flush=True)
         return
     crop = (-(-new_h // 4), -(-new_w // 4))
@@ -241,12 +287,13 @@ def main(argv=None):
     runners = {}
     for name in args.packages.split(","):
         runners[name] = (port_stages(cfg, sd, imgs, torch.device(args.device),
-                                     args.per_frame)
+                                     args.per_frame, dtype)
                          if name == "port" else jax_stages(cfg, sd, imgs))
     wholes = {}
     summary = {"probe": "c14", "long_edge": args.long_edge,
                "input": list(imgs.shape), "step": args.step,
-               "device": args.device, "cudnn_pinned": args.cudnn_pinned,
+               "device": args.device, "dtype": args.dtype,
+               "cudnn_pinned": args.cudnn_pinned,
                "per_frame": args.per_frame}
     if args.device.startswith("cuda"):
         summary["card"] = torch.cuda.get_device_name(0)
