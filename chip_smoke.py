@@ -283,6 +283,7 @@ beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -313,8 +314,7 @@ SLEEP_CYCLES = 10_000_000
 
 # kernel names of each port kernel in a profiler trace
 PORT_KERNELS = {"feature_splat": ("splat_kernel", "compact_kernel"),
-                "ln_mlp": ("ln_mlp_fused", "ln_mlp_phase", "ln_stats",
-                           "split_kernel"),
+                "ln_mlp": ("ln_mlp_", "ln_stats", "split_kernel"),
                 "paint_masks": ("paint_",),
                 "tile_sample": ("tile_sample_kernel",),
                 "attention": ("attention_kernel",)}
@@ -617,27 +617,72 @@ def _mlp_args(gen, dev, M, D, with_gamma, dt):
             rn(D, scale=0.1), 0.5 + rn(D, scale=0.1) if with_gamma else None)
 
 
-def _b2_weight_stream(M, D, H, esize):
+# CTAs of a cluster in B2's bf16 kernels (kCluster in csrc/ln_mlp.cu):
+# each weight box is read from L2 once per cluster and multicast
+B2_CLUSTER = 2
+
+
+def _b2_tile(M, N, sms):
+    """Route 2's bf16 tile (wide, WN) for an [M, N] product on a card of
+    `sms` SMs, as the kernel's tile_for picks it (sai_ln_mlp_tile)."""
+    from spatially_aware_ai_tpu_torch.models import ln_mlp as L
+    from spatially_aware_ai_tpu_torch.native_cuda import load
+
+    code = load("ln_mlp", L._SIGNATURES).sai_ln_mlp_tile(M, N, sms)
+    return code // 65536, code % 65536
+
+
+def _b2_weight_stream(M, D, H, esize, sms=132):
     """Bytes of weights B2 reads from L2 in one launch: the earlier
-    mma.sync design, blocks of TM = 64 / 32 / 16 rows (D <= 384 / 768 / 1536), each
-    reading both matrices in the activation type; this design, tiles of 128
-    rows, each reading both matrices' planes once (f32: big and small TF32
-    planes, twice the bytes; bf16: one plane)."""
+    mma.sync design, blocks of TM = 64 / 32 / 16 rows (D <= 384 / 768 /
+    1536), each reading both matrices in the activation type; the wgmma
+    design with 128-row tiles (the f32 route's, and the earlier bf16
+    route's), each reading both matrices' planes once (f32: big and small
+    TF32 planes, twice the bytes; bf16: one plane); and the bf16 route's
+    clusters (`bf16_cluster`), each cluster of B2_CLUSTER row tiles
+    reading every weight box once (multicast), route 2's row tiles of 128
+    or 64 rows as the kernel picks them for this M (`_b2_tile`). A model
+    of the bytes, not a measurement."""
+    from spatially_aware_ai_tpu_torch.models import ln_mlp as L
+
     tm = 64 if D <= 384 else 32 if D <= 768 else 16
     planes = 2 if esize == 4 else 1
-    return {"old_mma_sync": -(-M // tm) * 2 * D * H * esize,
-            "new_wgmma": -(-M // 128) * 2 * D * H * esize * planes}
+    out = {"old_mma_sync": -(-M // tm) * 2 * D * H * esize,
+           "new_wgmma": -(-M // 128) * 2 * D * H * esize * planes}
+    if esize == 2:
+        def steps(rows):  # a cluster's steps over the row tiles
+            return -(-(-(-M // rows)) // B2_CLUSTER)
+
+        if L.route(D, H) == 1:
+            out["bf16_cluster"] = steps(128) * 2 * D * H * 2
+        else:
+            out["bf16_cluster"] = sum(
+                steps(64 if _b2_tile(M, n, sms)[0] else 128) * D * H * 2
+                for n in (H, D))
+    return out
+
+
+def _b2_bound(M, D, H, dt):
+    """B2's bound (ms, by): each input read once and the output written
+    once; operations as 3xTF32 (three TF32 products per f32 product) for
+    f32, at the bf16 peak for bf16."""
+    import torch
+
+    esize = 4 if dt == torch.float32 else 2
+    flops = 4.0 * M * D * H
+    nbytes = (3 * M * D + 2 * D * H) * esize + (3 * D + H) * 4
+    if dt == torch.float32:
+        return _bound(nbytes, 3 * flops, PEAK_TF32)
+    return _bound(nbytes, flops, PEAK_BF16)
 
 
 def _b2_entry(args, act, eps, timed):
-    """B2 against its plain version on args; with `timed`, its ms, the
-    plain version's and the library's: the two products alone as cuBLAS
-    GEMMs in the activation dtype (torch.addmm twice, TF32 off for f32, on
-    the LN'd input and the activation the plain version makes, each
-    rounded to that dtype as B2 rounds them), the same work B2's tensor
-    cores do. The bound is the 3xTF32 tensor-core floor for f32 (three
-    TF32 products per f32 product), the bf16 peak for bf16; the f32
-    CUDA-core figure stands beside it."""
+    """B2 against its plain version on args; with `timed`, its ms, its
+    weight pass's alone (`_b2_planes_fn`), the plain version's and the
+    library's (`_b2_library_fn`: the same work B2's tensor cores do). The
+    bound is the 3xTF32 tensor-core floor for f32 (three TF32 products per
+    f32 product), the bf16 peak for bf16; the f32 CUDA-core figure stands
+    beside it."""
     import torch
 
     from spatially_aware_ai_tpu_torch.models import ln_mlp as L
@@ -655,16 +700,17 @@ def _b2_entry(args, act, eps, timed):
     del got, diff
     flops = 4.0 * M * D * H
     nbytes = (3 * M * D + 2 * D * H) * x.element_size() + (3 * D + H) * 4
-    if dt == torch.float32:
-        bound_ms, bound_by = _bound(nbytes, 3 * flops, PEAK_TF32)
-    else:
-        bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16)
+    bound_ms, bound_by = _b2_bound(M, D, H, dt)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     entry = {"kernel": "ln_mlp", "act": act, "dtype": str(dt)[6:], "M": M,
              "D": D, "H": H, "route": L.route(D, H),
              "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": good,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "bound_ms_f32_cuda_core": _bound(nbytes, flops, PEAK_F32)[0],
-             "l2_weight_bytes": _b2_weight_stream(M, D, H, x.element_size())}
+             "l2_weight_bytes": _b2_weight_stream(M, D, H, x.element_size(),
+                                                  sms)}
+    if dt == torch.bfloat16 and L.route(D, H) == 2:
+        entry["tiles"] = [_b2_tile(M, n, sms) for n in (H, D)]
     if dt == torch.float32:
         # what one TF32 pass reads on the same inputs (cuBLAS with TF32
         # on), beside the limit it must not pass
@@ -681,19 +727,45 @@ def _b2_entry(args, act, eps, timed):
     if timed:
         kw = dict(act=act, eps=eps)
         entry["ms"] = time_ms(lambda: L.fused_ln_mlp(*args, **kw))
+        entry["split_ms"] = time_ms(_b2_planes_fn(w1, w2, dt))
         entry["plain_ms"] = time_ms(lambda: L.ln_mlp_plain(*args, **kw))
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        lnx = ((xf - mu) * torch.rsqrt(
-            (xf - mu).square().mean(-1, keepdim=True) + eps) * lns
-            + lnb).to(dt)
-        del xf, mu
-        w1d, w2d, b1d, b2d = (t.to(dt) for t in (w1, w2, b1, b2))
-        hid = L.activation(torch.addmm(b1d, lnx, w1d).float(), act).to(dt)
-        entry["library_ms"] = time_ms(lambda: (
-            torch.addmm(b1d, lnx, w1d), torch.addmm(b2d, hid, w2d)))
-        del lnx, hid, w1d, w2d
+        entry["library_ms"] = time_ms(_b2_library_fn(args, act, eps))
     return entry
+
+
+def _b2_library_fn(args, act, eps):
+    """B2's library yardstick on args: the two products alone as cuBLAS
+    GEMMs in the activation dtype (torch.addmm twice, TF32 off for f32), on
+    the LN'd input and the activation the plain version makes, each rounded
+    to that dtype as B2 rounds them."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models import ln_mlp as L
+
+    x, res, lns, lnb, w1, b1, w2, b2, gamma = args
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    lnx = ((xf - mu) * torch.rsqrt(
+        (xf - mu).square().mean(-1, keepdim=True) + eps) * lns + lnb).to(dt)
+    del xf, mu
+    w1d, w2d, b1d, b2d = (t.to(dt) for t in (w1, w2, b1, b2))
+    hid = L.activation(torch.addmm(b1d, lnx, w1d).float(), act).to(dt)
+    return lambda: (torch.addmm(b1d, lnx, w1d), torch.addmm(b2d, hid, w2d))
+
+
+def _b2_planes_fn(w1, w2, dt):
+    """B2's weight pass alone, as fused_ln_mlp makes it: the bf16 cast of
+    both weights (one launch), or the f32 split of each in its route's K
+    order."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models import ln_mlp as L
+
+    if dt == torch.bfloat16:
+        return lambda: L.bf16_planes(w1.t(), w2.t())
+    m1, m2 = L.PLANE_MODES[L.route(*w1.shape)]
+    return lambda: (L.weight_planes(w1.t(), m1), L.weight_planes(w2.t(), m2))
 
 
 # B2's launches per run of path_kmax (4 chunks of 8 frames) at each
@@ -721,9 +793,9 @@ def _convnext_mlp_checks(gen, dev, checks, report):
             ok &= entry["ok"]
             checks.append(entry)
             by_shape[f"D{D}_M{M}"] = {
-                **{k: entry[k] for k in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by",
-                                         "max_abs_err")},
+                **{k: entry[k] for k in ("ms", "split_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")},
                 "launches_per_path_run": launches}
             del args
         report.setdefault("ln_mlp", {"name": "ln_mlp"})[key] = by_shape
@@ -1927,6 +1999,8 @@ def phase_path_kmax_bf16(report, dev="cuda"):
     _record_launches(report, "path_kmax_bf16", launches)
     if not out["ok"]:
         raise SystemExit(f"path_kmax_bf16 phase failed: {checks}")
+    return (lambda: fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
+                              device=dev)), secs["fuse_scan_s"]
 
 
 def _paint_on_path(seg, rgbs):
@@ -1964,9 +2038,10 @@ def _paint_on_path(seg, rgbs):
 
 def phase_profile(name, run_path, unprofiled_s):
     """A path's fuse_scan once more under torch.profiler: device time by
-    kernel (top 12) and the device's busy time, as a share of the profiled
-    wall time and of the path phase's unprofiled fuse_scan time (the
-    profiler slows the host side)."""
+    kernel (top 12), each port kernel's device time and count (B2's also by
+    its kernels' names), and the device's busy time, as a share of the
+    profiled wall time and of the path phase's unprofiled fuse_scan time
+    (the profiler slows the host side)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1994,9 +2069,19 @@ def phase_profile(name, run_path, unprofiled_s):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     port = {}
     for kernel, names in PORT_KERNELS.items():
-        hits = [v for k, v in by_name.items() if any(n in k for n in names)]
-        port[kernel] = {"ms": sum(v[0] for v in hits),
-                        "count": sum(v[1] for v in hits)}
+        hits = {k: v for k, v in by_name.items()
+                if any(n in k for n in names)}
+        port[kernel] = {"ms": sum(v[0] for v in hits.values()),
+                        "count": sum(v[1] for v in hits.values())}
+        if kernel == "ln_mlp":
+            split = {}
+            for k, (ms, n) in hits.items():
+                short = k.replace("(anonymous namespace)::", "")
+                short = short.split("(")[0].replace("void ", "")[:80]
+                tot = split.setdefault(short, {"ms": 0.0, "count": 0})
+                tot["ms"] += ms
+                tot["count"] += n
+            port[kernel]["by_kernel"] = split
     emit({"phase": "profile", "path": name, "wall_s": wall_s,
           "device_events": len(spans),
           "device_busy_s": busy_us / 1e6,
@@ -4261,8 +4346,16 @@ def main(argv=None) -> int:
         profiled = ("path_kmax",) + phase_path_kmax(report)
     if "profile" in phases and profiled is not None:
         phase_profile(*profiled)
+    # a path's models go with its closure, so that no later phase's peak
+    # memory holds them
+    del profiled
+    gc.collect()
     if "path_kmax_bf16" in phases:
-        phase_path_kmax_bf16(report)
+        bf16_path = phase_path_kmax_bf16(report)
+        if "profile" in phases:
+            phase_profile("path_kmax_bf16", *bf16_path)
+        del bf16_path
+        gc.collect()
     if "insitu" in phases:
         phase_insitu(report)
     if "serve" in phases:

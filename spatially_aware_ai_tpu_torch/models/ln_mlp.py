@@ -10,13 +10,16 @@ dtype (f32 or bf16). act is "quick_gelu" (CLIP: x * sigmoid(1.702 x)) or
 `fused_ln_mlp` launches them (or raises); on CPU tensors it runs the plain
 PyTorch version below.
 
-On the card a call is the split pass over both weights (big / small TF32
-planes for f32, one bf16 plane for bf16, K-major, read from the callers'
-nn.Linear layout `w1.t()` [H, D] / `w2.t()` [D, H] in place of a copy),
-then one of two routes (`route`): the fused kernel for D <= 256, or the
-two phases (h = act(LN(x) w1 + b1) to device memory, then the residual
-block) for D > 256. `launches` counts one per `fused_ln_mlp` call that
-launched them, whatever the route.
+On the card a call first makes the weight planes, K-major, read from the
+callers' nn.Linear layout `w1.t()` [H, D] / `w2.t()` [D, H] in place of a
+copy: for f32 the split pass, once per weight (big / small TF32 planes, K
+permuted as the route's fragments need); for bf16 the cast pass, one launch
+for both (K as it is). Then one of two routes (`route`): the fused kernel
+for D <= 256, or the two phases (h = act(LN(x) w1 + b1) to device memory,
+then the residual block) for D > 256; in bf16 a pre-pass writes LN(x) for
+phase 1 and each phase's tile follows M (tile_for in csrc/ln_mlp.cu).
+`launches` counts one per `fused_ln_mlp` call that launched them, whatever
+the route.
 """
 from __future__ import annotations
 
@@ -34,8 +37,14 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
     "sai_ln_mlp_split": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]),
+    "sai_ln_mlp_cast": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]),
+    "sai_ln_mlp_tile": (ctypes.c_int, [ctypes.c_int] * 3),
 }
 
 _ACTS = {"quick_gelu": 0, "gelu": 1}
@@ -82,39 +91,46 @@ def route(D: int, H: int) -> int:
     return 1 if D <= 256 else 2
 
 
-# the split pass's K order for (w1, w2) by route (src_k in csrc/ln_mlp.cu):
-# 0 as it is, 1 the fused GEMM2's accumulator order, 2 the two-phase order
+# the f32 split pass's K order for (w1, w2) by route (src_k in
+# csrc/ln_mlp.cu): 0 as it is, 1 the fused GEMM2's accumulator order, 2 the
+# two-phase order. bf16 planes keep the callers' order on both routes.
 PLANE_MODES = {1: (0, 1), 2: (2, 2)}
 
 
-def plane_order(K: int, mode: int, bf16: bool):
-    """Source K index of each stored position of a plane row (numpy int64
-    [K]): mirrors src_k in csrc/ln_mlp.cu. Mode 1 (f32): within groups of
+def plane_order(K: int, mode: int):
+    """Source K index of each stored position of an f32 plane row (numpy
+    int64 [K]): mirrors src_k in csrc/ln_mlp.cu. Mode 1: within groups of
     8, position s holds 2s (s < 4) or 2(s - 4) + 1, the column order of a
-    wgmma accumulator row pair; mode 2: within slabs of 32 f32, position
-    8kk + s holds 8(s % 4) + 2kk + s // 4, and within slabs of 64 bf16,
-    position 16kk + 8j + 2t + e holds 16t + 4kk + 2j + e, so that thread t's
-    fragment columns are contiguous."""
+    wgmma accumulator row pair; mode 2: within slabs of 32, position 8kk + s
+    holds 8(s % 4) + 2kk + s // 4, so that thread t's fragment columns are
+    contiguous."""
     p = np.arange(K)
-    if mode == 1 and not bf16:
+    if mode == 1:
         s = p % 8
         return p - s + np.where(s < 4, 2 * s, 2 * (s - 4) + 1)
-    if mode == 2 and not bf16:
+    if mode == 2:
         q = p % 32
         kk, s = q // 8, q % 8
         return p - q + 8 * (s % 4) + 2 * kk + s // 4
-    if mode == 2 and bf16:
-        q = p % 64
-        kk, j, t, e = q // 16, (q // 8) % 2, (q // 2) % 4, q % 2
-        return p - q + 16 * t + 4 * kk + 2 * j + e
     return p
 
 
-def weight_planes(w, dtype, mode: int = 0):
-    """The split pass on the card: w [N, K] (any strides, f32 or bf16) ->
-    big / small TF32 planes [2, N, K] f32 (dtype f32; big + small == w,
-    big with its low 13 mantissa bits zero) or one plane [N, K] bf16, with
-    K permuted within each group as `mode` says."""
+def swizzle_offset(row, col, rows: int):
+    """Byte offset of bf16 element (row, col) in a K-major tile of 64-column
+    blocks, each [rows][128 B] with the 128-byte swizzle (16-byte chunk j of
+    row r stored at chunk j ^ (r % 8)): where route 1's consumers write
+    LN(x) for wgmma to read, as TMA writes its boxes. Mirrors sw128_offset
+    in csrc/ln_mlp.cu; numpy arrays or ints."""
+    block, c = col // 64, col % 64
+    return (block * rows * 128 + row * 128 + ((c // 8) ^ (row % 8)) * 16
+            + (c % 8) * 2)
+
+
+def weight_planes(w, mode: int = 0):
+    """The f32 split pass on the card: w [N, K] (any strides, f32 or bf16)
+    -> big / small TF32 planes [2, N, K] f32 (big + small == w, big with
+    its low 13 mantissa bits zero), K permuted within each group as `mode`
+    says."""
     from ..native_cuda import check, load
 
     if w.device.type != "cuda" or w.dim() != 2:
@@ -122,14 +138,35 @@ def weight_planes(w, dtype, mode: int = 0):
     if w.dtype not in _DTYPES:
         w = w.float()
     N, K = w.shape
-    shape = (N, K) if dtype == torch.bfloat16 else (2, N, K)
-    planes = torch.empty(shape, dtype=dtype, device=w.device)
+    planes = torch.empty((2, N, K), dtype=torch.float32, device=w.device)
     fn = load("ln_mlp", _SIGNATURES).sai_ln_mlp_split
     err = fn(w.data_ptr(), _DTYPES[w.dtype], w.stride(0), w.stride(1), N, K,
-             _DTYPES[dtype], mode, planes.data_ptr(),
-             torch.cuda.current_stream().cuda_stream)
+             mode, planes.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(err, "ln_mlp split")
     return planes
+
+
+def bf16_planes(w1t, w2t):
+    """The bf16 cast pass on the card, one launch for both weights: w1t
+    [H, D] and w2t [D, H] (any strides, f32 or bf16; the callers'
+    `fc.weight` layout) -> contiguous bf16 copies, K as it is."""
+    from ..native_cuda import check, load
+
+    H, D = w1t.shape
+    if tuple(w2t.shape) != (D, H):
+        raise ValueError(f"w2t must be [{D}, {H}], got {tuple(w2t.shape)}")
+    if w1t.device.type != "cuda" or w2t.device.type != "cuda":
+        raise ValueError("bf16_planes takes CUDA tensors")
+    w1t, w2t = (w if w.dtype in _DTYPES else w.float() for w in (w1t, w2t))
+    p1 = torch.empty((H, D), dtype=torch.bfloat16, device=w1t.device)
+    p2 = torch.empty((D, H), dtype=torch.bfloat16, device=w1t.device)
+    fn = load("ln_mlp", _SIGNATURES).sai_ln_mlp_cast
+    err = fn(w1t.data_ptr(), _DTYPES[w1t.dtype], w1t.stride(0), w1t.stride(1),
+             w2t.data_ptr(), _DTYPES[w2t.dtype], w2t.stride(0), w2t.stride(1),
+             D, H, p1.data_ptr(), p2.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    check(err, "ln_mlp cast")
+    return p1, p2
 
 
 def fused_ln_mlp(x, residual, ln_scale, ln_bias, w1, b1, w2, b2, gamma=None,
@@ -178,16 +215,21 @@ def fused_ln_mlp(x, residual, ln_scale, ln_bias, w1, b1, w2, b2, gamma=None,
     if x.data_ptr() % 16 or residual.data_ptr() % 16:
         raise ValueError("x and residual must be 16-byte aligned")
     # the weights as the kernels read them, K-major: w1.t() [H, D] and
-    # w2.t() [D, H] (views; the split pass reads any strides)
-    m1, m2 = PLANE_MODES[r]
-    p1 = weight_planes(w1.t(), x.dtype, m1)
-    p2 = weight_planes(w2.t(), x.dtype, m2)
+    # w2.t() [D, H] (views; the split and cast passes read any strides)
+    if x.dtype == torch.bfloat16:
+        p1, p2 = bf16_planes(w1.t(), w2.t())
+    else:
+        m1, m2 = PLANE_MODES[r]
+        p1, p2 = weight_planes(w1.t(), m1), weight_planes(w2.t(), m2)
     vec = {k: v.to(torch.float32).contiguous() for k, (v, _) in vecs.items()}
     out = torch.empty_like(x)
-    # route 2's scratch: the hidden activation and each row's LN mean, 1/std
-    scratch = (torch.empty((M, H), dtype=x.dtype, device=dev),
-               torch.empty((M, 2), dtype=torch.float32, device=dev)) \
-        if r == 2 else (None, None)
+    # route 2's scratch: the hidden activation, and each row's LN mean and
+    # 1/std (f32) or LN(x) itself (bf16)
+    scratch = (None, None)
+    if r == 2:
+        lnx = (torch.empty((M, 2), dtype=torch.float32, device=dev)
+               if x.dtype == torch.float32 else torch.empty_like(x))
+        scratch = (torch.empty((M, H), dtype=x.dtype, device=dev), lnx)
     return _launch(x, residual, vec, p1, p2, out, scratch, act, eps)
 
 

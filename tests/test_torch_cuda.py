@@ -155,12 +155,22 @@ def test_splat_kernel_routes_on_card(F, Py, Px, C):
     ("gelu", 1e-6, True, torch.float32, 192, 45),          # ConvNeXt
     ("gelu", 1e-6, True, torch.bfloat16, 384, 45),
     ("gelu", 1e-6, True, torch.bfloat16, 192, 1003),       # ConvNeXt os4
+    # bf16 tiles: route 1 at each D, route 2's 128-row tiles (WN 256, 128)
+    # and its small-M tiles (64 rows, WN 64 / 32)
+    ("quick_gelu", 1e-5, False, torch.bfloat16, 64, 131),
+    ("gelu", 1e-6, True, torch.bfloat16, 128, 129),
+    ("gelu", 1e-6, True, torch.bfloat16, 256, 77),
+    ("quick_gelu", 1e-5, False, torch.bfloat16, 768, 14000),
+    ("quick_gelu", 1e-5, False, torch.bfloat16, 512, 231),
+    ("gelu", 1e-6, True, torch.bfloat16, 1536, 1003),
+    ("gelu", 1e-6, True, torch.bfloat16, 384, 20000),
 ])
 def test_ln_mlp_kernel_on_card(act, eps, with_gamma, dtype, D, M):
     """Tolerances as chip_smoke.py: f32 3e-4 abs, no rel term (3xTF32
     reads about 1e-4, a single TF32 pass about 1.7e-3); bf16 3e-2 abs +
     2e-2 rel (a sum-order difference can move a bf16 rounding of the
-    hidden activation by one ulp)."""
+    hidden activation by one ulp). The bf16 cases cover every tile the
+    route can choose (tile_for in csrc/ln_mlp.cu)."""
     dev = _card()
     args = [None if a is None else a.to(dev)
             for a in _mlp_inputs(M, D, with_gamma, np.random.default_rng(2))]
@@ -179,15 +189,17 @@ def test_ln_mlp_kernel_on_card(act, eps, with_gamma, dtype, D, M):
 @pytest.mark.parametrize("act,eps,with_gamma", [
     ("gelu", 1e-6, True), ("quick_gelu", 1e-5, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [128, 384])   # route 1 (fused), route 2
+@pytest.mark.parametrize("D", [128, 320, 384])   # route 1, route 2 (twice)
 def test_ln_mlp_routes_on_card(D, dtype, act, eps, with_gamma, layout):
-    """Both routes against the plain version at ragged M (1, 45, 129,
-    1003), with the weights as the callers hold them (nn.Linear weights
-    transposed, `fc.weight.t()`) and as contiguous [D, H] / [H, D];
-    tolerances as test_ln_mlp_kernel_on_card. One count per call."""
+    """Both routes against the plain version at ragged M (1, 45, 77, 129,
+    231, 1003, 20000: in bf16 route 2's small-M tiles of WN 32 and 64 and
+    its 128-row tiles of WN 256, 128 and 64), with the weights as the
+    callers hold them (nn.Linear weights transposed, `fc.weight.t()`) and
+    as contiguous [D, H] / [H, D]; tolerances as
+    test_ln_mlp_kernel_on_card. One count per call."""
     dev = _card()
     assert L.route(D, 4 * D) == (1 if D <= 256 else 2)
-    for M in (1, 45, 129, 1003):
+    for M in (1, 45, 77, 129, 231, 1003, 20000):
         args = [None if a is None else a.to(dev)
                 for a in _mlp_inputs(M, D, with_gamma,
                                      np.random.default_rng(M))]
@@ -208,21 +220,111 @@ def test_ln_mlp_routes_on_card(D, dtype, act, eps, with_gamma, layout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_ln_mlp_split_pass_on_card(mode):
-    """The split pass: big + small == w exactly, big's low 13 mantissa
-    bits zero, in the order `plane_order` gives; bf16 the rounded weight in
-    that order. From a transposed view, as the callers pass weights."""
+    """The f32 split pass: big + small == w exactly, big's low 13 mantissa
+    bits zero, in the order `plane_order` gives. The bf16 cast pass (one
+    launch for both weights): the rounded weights in the callers' order,
+    from f32 and from bf16. From transposed views, as the callers pass
+    weights."""
     dev = _card()
     rng = np.random.default_rng(8)
     w = torch.from_numpy(rng.normal(size=(192, 256)).astype(np.float32))
     w = w.to(dev).t()                                  # [256, 192] view
-    order = torch.from_numpy(L.plane_order(192, mode, False)).to(dev)
-    planes = L.weight_planes(w, torch.float32, mode)
+    order = torch.from_numpy(L.plane_order(192, mode)).to(dev)
+    planes = L.weight_planes(w, mode)
     big, small = planes[0], planes[1]
     assert torch.equal(big + small, w[:, order])
     assert not (big.view(torch.int32) & 0x1FFF).any()
-    order = torch.from_numpy(L.plane_order(192, mode, True)).to(dev)
-    assert torch.equal(L.weight_planes(w, torch.bfloat16, mode),
-                       w[:, order].to(torch.bfloat16))
+    w2 = torch.from_numpy(rng.normal(size=(256, 192)).astype(np.float32))
+    w2 = w2.to(dev).t()                                # [192, 256] view
+    src2 = w2 if mode != 2 else w2.to(torch.bfloat16)
+    p1, p2 = L.bf16_planes(w, src2)
+    assert p1.is_contiguous() and p2.is_contiguous()
+    assert torch.equal(p1, w.to(torch.bfloat16))
+    assert torch.equal(p2, src2.to(torch.bfloat16))
+
+
+# route 2's bf16 tile (wide, WN) at the path shapes on a 132-SM card
+_PATH_TILES = {
+    (650752 // 4, 4 * 384): (0, 256), (650752 // 4, 384): (0, 128),
+    (40672, 3072): (0, 256), (40672, 768): (0, 256),
+    (10168, 6144): (0, 256), (10168, 1536): (0, 256),
+    (14000, 3072): (0, 256), (14000, 768): (0, 256),
+    (231, 2048): (1, 32), (231, 512): (1, 32), (77, 2048): (1, 32),
+    (1003, 1536): (1, 64), (1003, 384): (1, 32), (20000, 320): (0, 64),
+}
+
+
+@pytest.mark.cuda
+def test_ln_mlp_tile_choice_on_card():
+    """The kernel's tile choice (sai_ln_mlp_tile, read by chip_smoke's L2
+    byte counts) at the path shapes, and for every M and N a tile that
+    divides N into the two warpgroups' 64 x WN products. Whatever the tile,
+    K is summed in the same order: test_ln_mlp_rows_do_not_depend_on_m_on_card
+    holds that bit for bit."""
+    from spatially_aware_ai_tpu_torch.native_cuda import load
+
+    _card()
+    fn = load("ln_mlp", L._SIGNATURES).sai_ln_mlp_tile
+    for (M, N), want in _PATH_TILES.items():
+        code = fn(M, N, 132)
+        assert (code // 65536, code % 65536) == want, (M, N)
+    for sms in (132, 114, 1):
+        for N in range(64, 6144 + 1, 64):
+            for M in (1, 63, 64, 65, 127, 128, 231, 1003, 8191, 40672,
+                      650752):
+                wide, wn = divmod(fn(M, N, sms), 65536)
+                assert wide in (0, 1) and wn in (32, 64, 128, 256)
+                assert N % (wn * (1 + wide)) == 0, (M, N, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,act,eps,with_gamma", [
+    (192, "gelu", 1e-6, True),            # route 1
+    (512, "quick_gelu", 1e-5, False),     # route 2, CLIP text
+    (768, "quick_gelu", 1e-5, False),     # route 2, CLIP vision
+])
+def test_ln_mlp_rows_do_not_depend_on_m_on_card(dtype, D, act, eps,
+                                                 with_gamma):
+    """C14 for B2: rows [a:b] of a call over M rows are bitwise equal to a
+    call over those rows alone, for M on different tile choices (in bf16
+    route 2 14,000 rows take 128-row tiles of WN 256, 231 and 77 rows
+    64-row tiles of WN 32), at any place in the batch."""
+    dev = _card()
+    args = [None if a is None else a.to(dev)
+            for a in _mlp_inputs(14000, D, with_gamma,
+                                 np.random.default_rng(D))]
+    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+
+    def call(lo, hi):
+        part = [args[0][lo:hi].contiguous(), args[1][lo:hi].contiguous(),
+                *args[2:]]
+        return L.fused_ln_mlp(*part, act=act, eps=eps)
+
+    whole = call(0, 14000)
+    for lo, hi in ((0, 231), (5000, 5231), (13923, 14000), (77, 154)):
+        assert torch.equal(call(lo, hi), whole[lo:hi]), (lo, hi)
+    small = call(1000, 1231)
+    assert torch.equal(call(1100, 1177), small[100:177])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,M", [(192, 1003), (768, 14000), (512, 231)])
+def test_ln_mlp_is_bitwise_repeatable_on_card(dtype, D, M):
+    """C15 for B2: the same call again, on a fresh stream, gives the same
+    bits (no atomics; every sum in a fixed order)."""
+    dev = _card()
+    args = [None if a is None else a.to(dev)
+            for a in _mlp_inputs(M, D, True, np.random.default_rng(M))]
+    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+    first = L.fused_ln_mlp(*args, act="gelu", eps=1e-6)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        again = L.fused_ln_mlp(*args, act="gelu", eps=1e-6)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert torch.equal(first, again)
 
 
 def _paint_inputs(F, N, h, w, rng):

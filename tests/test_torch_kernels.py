@@ -155,6 +155,20 @@ def test_ln_mlp_wrapper_checks():
     assert L.PLANE_MODES == {1: (0, 1), 2: (2, 2)}
 
 
+def test_ln_mlp_weight_passes_check_their_inputs():
+    """The weight passes run on the card only (the CPU path makes no
+    planes), and the bf16 cast pass takes w2t as [D, H] beside w1t [H, D],
+    the callers' `fc.weight` layout of both, before it looks at the
+    device."""
+    w1t = torch.zeros(256, 64)
+    with pytest.raises(ValueError, match=r"must be \[64, 256\]"):
+        L.bf16_planes(w1t, torch.zeros(256, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        L.bf16_planes(w1t, torch.zeros(64, 256))
+    with pytest.raises(ValueError, match="CUDA"):
+        L.weight_planes(w1t, 0)
+
+
 def test_ln_mlp_takes_the_callers_weight_layout():
     """nn.Linear weights passed transposed (`fc.weight.t()`, as the ConvNeXt
     block and the CLIP MLP pass them) give the same result as contiguous
@@ -205,19 +219,16 @@ def test_cpu_gelu_does_not_go_through_torch_erf():
 
 
 # The A-register slots the kernels fill for thread column group t (t = lane
-# % 4) at k-step kk of a slab, as a source column of the slab (route 2) or
-# of the 64-wide hidden chunk (route 1, from the GEMM1 accumulator, whose
-# n8 tile j holds columns 8j + 2t and 8j + 2t + 1 of rows g and g + 8).
-# tf32 k8 steps have slots t (a0, a1) and t + 4 (a2, a3); bf16 k16 steps
-# slots 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3).
+# % 4) at k-step kk of a slab, as a source column of the slab (route 2,
+# f32) or of the 64-wide hidden chunk (route 1, from the GEMM1 accumulator,
+# whose n8 tile j holds columns 8j + 2t and 8j + 2t + 1 of rows g and g +
+# 8). tf32 k8 steps have slots t (a0, a1) and t + 4 (a2, a3); bf16 k16
+# steps slots 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3). bf16 route 2
+# reads A from shared memory (test_swizzle_offset_matches_the_wgmma_walk).
 _SLOT_RULES = {
     # route 2, f32: thread t holds columns 8t .. 8t + 7 of the slab
     ("phase", False): (32, 8, lambda kk, t: {t: 8 * t + 2 * kk,
                                              t + 4: 8 * t + 2 * kk + 1}),
-    # route 2, bf16: thread t holds columns 16t .. 16t + 15
-    ("phase", True): (64, 16, lambda kk, t: {
-        2 * t: 16 * t + 4 * kk, 2 * t + 1: 16 * t + 4 * kk + 1,
-        2 * t + 8: 16 * t + 4 * kk + 2, 2 * t + 9: 16 * t + 4 * kk + 3}),
     # route 1 GEMM2, f32: k-step j of the chunk takes accumulator tile j
     ("fused", False): (64, 8, lambda kk, t: {t: 8 * kk + 2 * t,
                                              t + 4: 8 * kk + 2 * t + 1}),
@@ -231,9 +242,10 @@ _SLOT_RULES = {
 @pytest.mark.parametrize("route,bf16", list(_SLOT_RULES))
 def test_plane_order_matches_the_kernels_fragments(route, bf16):
     """A numpy walk of the kernels' k-steps: the A slots each thread fills
-    (as the kernels fill them) times the weight planes in `plane_order`'s
-    order (the split pass's, mirrored) must give A @ W. This pins the K
-    permutation that lets route 2 read contiguous A columns and route 1
+    (as the kernels fill them) times the weight planes in their stored
+    order (f32: `plane_order`'s, the split pass's mirrored; bf16: the
+    callers' order, the cast pass's) must give A @ W. This pins the K
+    permutation that lets f32 route 2 read contiguous A columns and route 1
     feed GEMM1's accumulator straight into GEMM2."""
     slab, step, rule = _SLOT_RULES[(route, bf16)]
     mode = {"phase": 2, "fused": 1}[route]
@@ -241,7 +253,7 @@ def test_plane_order_matches_the_kernels_fragments(route, bf16):
     K, N = 128, 16
     a = rng.normal(size=(3, K))
     w = rng.normal(size=(K, N))
-    stored = w[L.plane_order(K, mode, bf16)]        # plane row p, K-major
+    stored = w if bf16 else w[L.plane_order(K, mode)]  # plane row p
     got = np.zeros((3, N))
     for s0 in range(0, K, slab):
         for kk in range(slab // step):
@@ -254,6 +266,32 @@ def test_plane_order_matches_the_kernels_fragments(route, bf16):
             assert filled == set(range(step))
             got += frag @ stored[s0 + kk * step:s0 + (kk + 1) * step]
     np.testing.assert_allclose(got, a @ w, rtol=1e-12, atol=1e-12)
+
+
+def test_swizzle_offset_matches_the_wgmma_walk():
+    """bf16 A from shared memory: route 1's consumers write LN(x) at
+    `swizzle_offset` (sw128_offset in the kernel), and wgmma reads a 64-row
+    K-major operand by descriptor, k-step kk of a 64-column block at start
+    address block + 32 kk, 8-row groups 1024 bytes apart (SBO), with the
+    128-byte swizzle applied to the address (bits 4-6 XOR bits 7-9). A numpy
+    walk of those reads over a [128, 192] tile must find every element
+    where it was written, and the writes must fill the tile once."""
+    rows, cols = 128, 192
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    written = L.swizzle_offset(r, c, rows)
+    assert np.array_equal(np.sort(written.ravel()),
+                          np.arange(0, rows * cols * 2, 2))
+    for wg in range(2):                      # the warpgroups' 64-row halves
+        for block in range(cols // 64):
+            for kk in range(4):
+                start = block * rows * 128 + wg * 64 * 128 + kk * 32
+                for row in range(64):
+                    for j in range(16):      # the k16 step's columns
+                        logical = (start + (row // 8) * 1024
+                                   + (row % 8) * 128 + 2 * j)
+                        physical = logical ^ (((logical >> 7) & 7) << 4)
+                        assert physical == written[wg * 64 + row,
+                                                   64 * block + 16 * kk + j]
 
 
 def test_attention_plain_matches_the_probes_xla_formula():
