@@ -80,7 +80,14 @@ JSON line:
               query's text). Then B1 on the inputs the path gave it for its
               first chunk (kept aside during the run), timed into a zero
               grid of the path's size: live rows, ms, bound, bytes/s
-              (`splat_chunk0`).
+              (`splat_chunk0`). The tiler takes the fused conv stem: its
+              tokens must reach the tower once a chunk, [280, 49, 768];
+              after the counts are read, one frame on the card against a
+              plain CPU engine on the same weights (tokens within 1e-5 of
+              their scale, features within 1e-4 and by cosine >= 0.9999),
+              and the first chunk's features under the caller's TF32
+              flags within 1e-6 of their scale of those with the flags
+              off (`stem`).
 7. path_brick the `path` configuration with integrator="brick"; then the
               sparse integrator on the same inputs in the same process:
               tsdf_w, w and label_hist equal, tsdf_sum and rgb_sum within
@@ -1463,6 +1470,21 @@ def _crosscheck_kmax_bf16(cfg, state_dict, rgbs, out, dev="cuda"):
     return ok
 
 
+def _path_scan():
+    """The path point's synthetic scan, 32 frames of 1024x768, rendered
+    once for every phase that fuses it (path, path_brick, path_kmax,
+    shard, depth): rendering is set-up and takes most of a second a
+    frame on the host. fuse_scan only reads the frames."""
+    if "path_scan" not in _KEPT:
+        from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
+
+        ds = SyntheticSceneDataset(num_frames=32, width=1024, height=768)
+        for i in range(len(ds)):  # render up front: set-up, not the path
+            ds[i]
+        _KEPT["path_scan"] = ds
+    return _KEPT["path_scan"]
+
+
 def phase_path(report, integrator="sparse"):
     """The `path` phase; with integrator="brick" the `path_brick` phase,
     which also runs the sparse integrator on the same inputs after the
@@ -1473,7 +1495,7 @@ def phase_path(report, integrator="sparse"):
     import torch
 
     from spatially_aware_ai_tpu_torch.data import (
-        ColorSegmenter, SyntheticScene, SyntheticSceneDataset)
+        ColorSegmenter, SyntheticScene)
     from spatially_aware_ai_tpu_torch.grid import splat as S
     from spatially_aware_ai_tpu_torch.models import attention as A
     from spatially_aware_ai_tpu_torch.models import ln_mlp as L
@@ -1486,9 +1508,7 @@ def phase_path(report, integrator="sparse"):
     dev = torch.device("cuda")
     secs = {}
     t0 = time.perf_counter()
-    ds = SyntheticSceneDataset(num_frames=32, width=1024, height=768)
-    for i in range(len(ds)):  # render up front: set-up, not the path
-        ds[i]
+    ds = _path_scan()
     engine = ClipEngine.random(VIT_B_32_QUICKGELU, seed=0, device=dev)
     seg = ColorSegmenter(SyntheticScene.demo_room())
     name = "path" if integrator == "sparse" else f"path_{integrator}"
@@ -1501,11 +1521,13 @@ def phase_path(report, integrator="sparse"):
 
     messages = []
     kept, restore = _keep_first_scatter(integrator == "sparse")
+    spy, tokens_seen = _tokens_seen(engine, keep=False)
     S.launches = L.launches = A.launches = 0
     t0 = time.perf_counter()
     try:
-        result = fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
-                           device=dev, progress=messages.append)
+        with spy:
+            result = fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
+                               device=dev, progress=messages.append)
     finally:
         restore()
     secs["fuse_scan_s"] = time.perf_counter() - t0
@@ -1573,6 +1595,9 @@ def phase_path(report, integrator="sparse"):
         out["vs_sparse"]["fuse_scan_s_sparse"] = time.perf_counter() - t0
         checks["equal_to_sparse"] = out["vs_sparse"].pop("ok")
     if integrator == "sparse":
+        out["stem"], stem_checks = _stem_on_path(engine, ds, cfg,
+                                                 tokens_seen)
+        checks.update(stem_checks)
         out["splat_chunk0"] = _splat_on_path(kept)
         report.setdefault("feature_splat", {"name": "feature_splat"})[
             "path_chunk0_ms"] = out["splat_chunk0"]["ms"]
@@ -1583,6 +1608,86 @@ def phase_path(report, integrator="sparse"):
         raise SystemExit(f"{name} phase failed: {checks}")
     return (lambda: fuse_scan(ds, engine, cfg, segmenter=seg.run_on_image,
                               device=dev)), secs["fuse_scan_s"]
+
+
+def _tokens_seen(engine, keep=True):
+    """A patch of engine.model.encode_image_tokens that keeps each token
+    tensor the fused conv stem hands the tower (only its shape unless
+    `keep`), and the list it keeps them in."""
+    seen = []
+    fn = engine.model.encode_image_tokens
+
+    def spy(tokens):
+        seen.append(tokens if keep else tuple(tokens.shape))
+        return fn(tokens)
+
+    return mock.patch.object(engine.model, "encode_image_tokens", spy), seen
+
+
+def _stem_on_path(engine, ds, cfg, shapes):
+    """The fused conv stem, which the path's tiler takes: the token
+    shapes it handed the tower in the path's run (`shapes`, once a chunk,
+    [tiles, 49, 768]); one frame on the card against a plain CPU engine
+    on the same weights (tokens within 1e-5 of their scale, features
+    within 1e-4 and by cosine >= 0.9999 per tile); and the first chunk's
+    features under a caller's TF32 flags within 1e-6 of their scale of
+    those with the flags off (the stem's product pins f32 itself)."""
+    import torch
+
+    from spatially_aware_ai_tpu_torch.models.clip.engine import ClipEngine
+
+    chunk = cfg.frame_chunk
+    rgb = torch.as_tensor(ds.stacked(list(range(chunk)))["rgb"],
+                          device=engine.device)
+
+    def tile(e, x):
+        return e.img_inference_tiled_batch(x, cfg.clip_patch_size,
+                                           cfg.clip_patch_stride)
+
+    cpu = ClipEngine(engine.cfg, engine.model.state_dict(), device="cpu")
+    spy_card, tok_card = _tokens_seen(engine)
+    spy_cpu, tok_cpu = _tokens_seen(cpu)
+    with spy_card, spy_cpu:
+        got = tile(engine, rgb[:1]).cpu()
+        want = tile(cpu, rgb[:1].cpu())
+    tg, tw = tok_card[0].cpu(), tok_cpu[0]
+    a, b = (t.reshape(-1, t.shape[-1]).double() for t in (got, want))
+    frame = {"tokens_max_abs": float((tg - tw).abs().max()),
+             "tokens_scale": float(tw.abs().max()),
+             "max_abs": float((got - want).abs().max()),
+             "cos_min": float(((a * b).sum(1)
+                               / (a.norm(dim=1) * b.norm(dim=1))).min())}
+    del cpu, tok_card, tok_cpu, tg, tw
+    g = engine.cfg.image_size // engine.cfg.patch_size
+    tiles = got.shape[1] * got.shape[2]
+    # fuse_scan pads a short last chunk to frame_chunk frames
+    want_shapes = [(chunk * tiles, g * g, engine.cfg.vision_width)
+                   ] * -(-len(ds) // chunk)
+
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
+        off = tile(engine, rgb)
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        on = tile(engine, rgb)
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    tf32 = {"max_abs": float((on - off).abs().max()),
+            "scale": float(off.abs().max())}
+    out = {"token_shapes": [list(t) for t in shapes],
+           "frame_card_vs_cpu": frame, "callers_tf32": tf32}
+    checks = {
+        "stem_once_a_chunk": list(shapes) == want_shapes,
+        "stem_frame_vs_cpu": frame["tokens_max_abs"]
+        <= 1e-5 * frame["tokens_scale"] and frame["max_abs"] <= 1e-4
+        and frame["cos_min"] >= 0.9999,
+        "stem_tf32_unmoved": tf32["max_abs"] <= 1e-6 * tf32["scale"],
+    }
+    return out, checks
 
 
 def _keep_first_scatter(on: bool):
@@ -1671,7 +1776,6 @@ def phase_path_kmax(report):
     import numpy as np
     import torch
 
-    from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
     from spatially_aware_ai_tpu_torch.grid import splat as S
     from spatially_aware_ai_tpu_torch.models import attention as A
     from spatially_aware_ai_tpu_torch.models import ln_mlp as L
@@ -1687,9 +1791,7 @@ def phase_path_kmax(report):
     secs = {}
     t0 = time.perf_counter()
     n_frames, chunk = 32, 8
-    ds = SyntheticSceneDataset(num_frames=n_frames, width=1024, height=768)
-    for i in range(len(ds)):  # render up front: set-up, not the path
-        ds[i]
+    ds = _path_scan()
     engine = ClipEngine.random(VIT_B_32_QUICKGELU, seed=0, device=dev)
     seg = KM.KmaxSegmenter.random(KM.KMAX_CONVNEXT_LARGE, seed=0, device=dev)
     _scale_for_painting(seg.model)
@@ -3381,7 +3483,6 @@ def phase_shard(report):
 
     import torch
 
-    from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
     from spatially_aware_ai_tpu_torch.grid import splat as S
     from spatially_aware_ai_tpu_torch.models import attention as A
     from spatially_aware_ai_tpu_torch.models import ln_mlp as L
@@ -3393,9 +3494,7 @@ def phase_shard(report):
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     n_frames, chunk = 32, 8
-    ds = SyntheticSceneDataset(num_frames=n_frames, width=1024, height=768)
-    for i in range(len(ds)):  # render up front: set-up, not the path
-        ds[i]
+    ds = _path_scan()
     engine, seg = _full_engines(dev)
     mesh = make_mesh(devices=["cuda:0"] * SHARDS)
     cfg = FusionConfig(voxel_size=0.02, clip_patch_size=256,
@@ -3565,7 +3664,6 @@ def phase_depth(report):
     import numpy as np
     import torch
 
-    from spatially_aware_ai_tpu_torch.data import SyntheticSceneDataset
     from spatially_aware_ai_tpu_torch.grid import splat as S
     from spatially_aware_ai_tpu_torch.models import attention as A
     from spatially_aware_ai_tpu_torch.models import ln_mlp as L
@@ -3576,9 +3674,7 @@ def phase_depth(report):
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     n_frames, chunk = 32, 8
-    ds = SyntheticSceneDataset(num_frames=n_frames, width=1024, height=768)
-    for i in range(len(ds)):  # render up front: set-up, not the path
-        ds[i]
+    ds = _path_scan()
     engine, seg = _full_engines(dev)
     cpu = ClipEngine(engine.cfg, engine.model.state_dict(), device="cpu")
     st = ds.stacked(list(range(chunk)))

@@ -6,6 +6,12 @@ prompt ensemble.
 The engine lives on one device, the card unless `device="cpu"` is passed.
 `compute_dtype` is the activation dtype of the towers (f32 by default;
 bf16 optional); parameters stay f32 and embeddings come back in f32.
+
+`img_inference_tiled_batch` always takes the fused conv stem on its
+resize-once path (models/clip/tiling.py): its features are the unfused
+path's bits and it writes one fewer tile tensor. The JAX package makes
+the stem opt-in (SAI_FUSED_STEM=1); the port reads no such variable. The
+single-frame and depth-scaled tilers stay unfused, as there.
 """
 from __future__ import annotations
 
@@ -159,16 +165,25 @@ class ClipEngine:
             prep_dtype=self.compute_dtype, vit_size=self.cfg.image_size,
         )
 
+    def _conv_kernel(self) -> torch.Tensor:
+        """conv1's weight [width, 3, p, p] (the fused stem's)."""
+        return self.model.visual.conv1.weight
+
     @torch.inference_mode()
     def img_inference_tiled_batch(self, imgs, patch_size: int,
                                   patch_stride: int) -> torch.Tensor:
         """Frame chunk [F, H, W, 3] in [0, 1] -> [F, ny, nx, C] f32, all
-        tiles in one batch."""
+        tiles in one batch; the resize-once path through the fused conv
+        stem."""
         return tiled_image_features_batch(
             torch.as_tensor(imgs, device=self.device),
             patch_size=patch_size, patch_stride=patch_stride,
             encode_fn=self.model.encode_image_nchw,
-            prep_dtype=self.compute_dtype, vit_size=self.cfg.image_size,
+            prep_dtype=self.compute_dtype,
+            conv_kernel_fn=self._conv_kernel,
+            encode_tokens_fn=self.model.encode_image_tokens,
+            conv_patch=self.cfg.patch_size,
+            vit_size=self.cfg.image_size,
         )
 
     @torch.inference_mode()

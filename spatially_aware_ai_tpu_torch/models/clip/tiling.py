@@ -13,6 +13,14 @@ stride — the JAX package's fast prep, equivalent to resizing each tile.
 Images are channels-first inside; the public layout is the JAX one
 ([F, H, W, 3]).
 
+On that path `ClipEngine.img_inference_tiled_batch` takes the fused conv
+stem: the 224-tiles are unfolded straight into the [tiles * g * g,
+3 * p * p] token matrix of the tower's p x p patches, conv1 is one product
+with it, and the tower starts from its tokens (`CLIP.encode_image_tokens`);
+the [tiles, 3, 224, 224] tile tensor is never written. The tokens are the
+unfused path's: the same values against the same weight in the same
+product.
+
 `F.interpolate(bilinear, align_corners=False, antialias=False)` equals
 `jax.image.resize(bilinear, antialias=False)` on these paths (ROADMAP trap
 C5; pinned by tests/test_torch_clip.py).
@@ -22,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ...core.device import full_f32
 
 OPENAI_CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 OPENAI_CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -75,12 +85,38 @@ def resize_bilinear(x, size):
                          antialias=False)
 
 
+def _stem_tokens(small, kernel, vit_size: int, stride: int, conv_patch: int):
+    """The fused conv stem: [F, 3, H2, W2] resized frames and conv1's
+    weight [D, 3, cp, cp] -> patch tokens [F * ny * nx, g * g, D] of every
+    vit_size tile at `stride`, row-major over each tile's g x g token grid.
+    One copy makes the [F * ny * nx * g * g, 3 * cp * cp] matrix, rows in
+    (frame, tile row, tile column, token row, token column) order and
+    (channel, ky, kx) inside a row, the order of the weight's reshape; the
+    product runs in the frames' dtype with TF32 off."""
+    cp = conv_patch
+    g = vit_size // cp
+    p = get_patches_cf(small, vit_size, stride)    # [ny, nx, F, 3, vs, vs]
+    ny, nx, Fn, C = p.shape[:4]
+    p = p.reshape(ny, nx, Fn, C, g, cp, g, cp).permute(2, 0, 1, 4, 6, 3, 5, 7)
+    flat = p.reshape(Fn * ny * nx * g * g, C * cp * cp)
+    kmat = kernel.reshape(kernel.shape[0], -1).to(flat.dtype)
+    with full_f32():
+        tokens = F.linear(flat, kmat)
+    return tokens.reshape(Fn * ny * nx, g * g, -1)
+
+
 def tiled_image_features_batch(imgs, *, patch_size: int, patch_stride: int,
                                encode_fn, prep_dtype=None,
-                               vit_size: int = 224):
+                               conv_kernel_fn=None, encode_tokens_fn=None,
+                               conv_patch=None, vit_size: int = 224):
     """imgs [F, H, W, 3] in [0, 1] -> [F, ny, nx, C] tiled CLIP features.
 
-    encode_fn: [B, 3, vit, vit] channel-normalized -> [B, C]."""
+    encode_fn: [B, 3, vit, vit] channel-normalized -> [B, C].
+    conv_kernel_fn / encode_tokens_fn / conv_patch: with all three (conv1's
+    weight accessor, [B, g * g, width] tokens -> [B, C], the tower's patch
+    size), the resize-once path takes the fused conv stem when vit_size is
+    a multiple of conv_patch and of the scaled stride; the per-tile path
+    ignores them, as the JAX package's does."""
     if prep_dtype is not None:
         imgs = imgs.to(prep_dtype)
     mean = torch.as_tensor(OPENAI_CLIP_MEAN, device=imgs.device,
@@ -102,6 +138,16 @@ def tiled_image_features_batch(imgs, *, patch_size: int, patch_stride: int,
         H2, W2 = H * vs // patch_size, W * vs // patch_size
         stride2 = patch_stride * vs // patch_size
         small = resize_bilinear(x, (H2, W2))
+        if (
+            conv_kernel_fn is not None
+            and encode_tokens_fn is not None
+            and conv_patch is not None
+            and vs % conv_patch == 0
+            and vs % stride2 == 0
+        ):
+            feats = encode_tokens_fn(_stem_tokens(
+                small, conv_kernel_fn(), vs, stride2, conv_patch))
+            return feats.reshape(Fn, ny, nx, -1)
         flat = _unfold(small, vs, stride2)
     else:
         flat = resize_bilinear(_unfold(x, patch_size, patch_stride), (vs, vs))

@@ -297,3 +297,143 @@ def test_bf16_tiled_features_match_jax_bf16(bf16_engines, shape, ps,
     cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
                                   * np.linalg.norm(want, axis=-1))
     assert cos.min() >= 0.9999
+
+
+# the JAX package's fused-stem test config (tests/test_tiling.py): ViT
+# patch 32, so a 224-tile's 7x7 tokens start at 112 / 32 = 3.5 patches
+# apart and no two tiles share a token grid
+PATCH32_CONFIG = dict(
+    embed_dim=32, image_size=224, patch_size=32, vision_width=64,
+    vision_layers=2, vision_heads=4, vocab_size=49408, context_length=77,
+    text_width=64, text_heads=4, text_layers=2)
+
+
+@pytest.fixture(scope="module")
+def patch32_engines():
+    from spatially_aware_ai_tpu.models.clip.model import CLIPConfig as JCfg
+
+    jeng = JaxEngine.random(JCfg(**PATCH32_CONFIG), seed=2)
+    params = jax.tree_util.tree_map(np.asarray, jeng.params)
+    return jeng, ClipEngine.from_jax_params(jeng.cfg, params, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pair,patch", [("engines", 56),
+                                        ("patch32_engines", 32)])
+def test_fused_stem_matches_jax_and_the_unfused_tiler(request, pair, patch,
+                                                      dtype):
+    """The fused conv stem through the resize-once branch (2 x 384x512,
+    256/128: 3.5 tokens between tiles at patch 32) against the JAX
+    package's fused tiler on one set of weights: f32 within 1e-4; bf16
+    (prep and tower in bf16 on both sides) within 4 bf16 ulps of the
+    largest magnitude, every tile's feature by cosine >= 0.9999. Against
+    the port's unfused tiler: equal, since both give F.linear the same
+    [tiles * g * g, 3 * p * p] values against the same weight."""
+    from spatially_aware_ai_tpu.models.clip import tiling as JT
+    from spatially_aware_ai_tpu_torch.models.clip import tiling as TT
+
+    jeng, teng = request.getfixturevalue(pair)
+    if dtype == "bf16":
+        params = jax.tree_util.tree_map(np.asarray, jeng.params)
+        jeng = JaxEngine(jeng.cfg, jeng.params, compute_dtype=jnp.bfloat16)
+        teng = ClipEngine.from_jax_params(jeng.cfg, params,
+                                          compute_dtype=torch.bfloat16,
+                                          device="cpu")
+    assert teng.cfg.patch_size == patch
+    imgs = np.random.default_rng(15).uniform(
+        size=(2, 384, 512, 3)).astype(np.float32)
+    want = np.asarray(JT.tiled_image_features_batch(
+        jeng.params, jnp.asarray(imgs), patch_size=256, patch_stride=128,
+        encode_fn=jeng._encode_image, prep_dtype=jeng.compute_dtype,
+        conv_kernel_fn=jeng._conv_kernel,
+        encode_tokens_fn=jeng._encode_tokens, conv_patch=patch))
+    kw = dict(patch_size=256, patch_stride=128,
+              encode_fn=teng.model.encode_image_nchw,
+              prep_dtype=teng.compute_dtype)
+    with torch.inference_mode():
+        x = torch.from_numpy(imgs)
+        got = TT.tiled_image_features_batch(
+            x, **kw, conv_kernel_fn=teng._conv_kernel,
+            encode_tokens_fn=teng.model.encode_image_tokens,
+            conv_patch=patch)
+        unfused = TT.tiled_image_features_batch(x, **kw)
+    assert got.dtype == torch.float32 and got.shape == (2, 2, 3, 32)
+    assert torch.equal(got, unfused)
+    got = got.numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        return
+    assert max_bf16_ulps(got, want) <= 4.0
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    assert cos.min() >= 0.9999
+
+
+def test_fused_stem_unfolds_the_token_matrix_in_one_copy():
+    """The stem's unfold makes the token matrix with one copy, of exactly
+    the matrix's elements, and feeds it to one product; no channels-last
+    copy comes first (the resized frames stay channels-last in memory).
+    Any spelling torch dispatches a copy or a product as counts."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from spatially_aware_ai_tpu_torch.models.clip import tiling as TT
+
+    copy_ops = ("clone", "copy_", "contiguous", "_to_copy")
+    product_ops = ("mm", "addmm", "bmm", "linear", "matmul")
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.copies, self.products = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in copy_ops:
+                self.copies.append(out.numel())
+            self.products += [name] if name in product_ops else []
+            return out
+
+    small = torch.rand(2, 336, 448, 3).permute(0, 3, 1, 2)
+    kernel = torch.rand(64, 3, 32, 32)
+    with Ops() as ops:
+        tokens = TT._stem_tokens(small, kernel, 224, 112, 32)
+    assert tokens.shape == (2 * 2 * 3, 49, 64)
+    assert ops.copies == [2 * 2 * 3 * 49 * 3 * 32 * 32]
+    assert len(ops.products) == 1, ops.products
+
+
+@pytest.mark.parametrize("shape,ps,stride,fused", [
+    ((2, 384, 512, 3), 256, 128, True),   # resize-once: the fused stem
+    ((2, 72, 96, 3), 48, 24, False),      # per-patch: unfused
+])
+def test_sai_fused_stem_engine_matches_jax(engines, monkeypatch, shape, ps,
+                                           stride, fused):
+    """The port's img_inference_tiled_batch, which always takes the stem
+    on the resize-once branch, against the JAX engine built with
+    SAI_FUSED_STEM=1 (its stem taken on the same branch): within 1e-4,
+    the tokens handed to the tower once on that branch and never on the
+    per-patch one, and equal to the port's tiler without the stem."""
+    from spatially_aware_ai_tpu_torch.models.clip import tiling as TT
+
+    jeng0, teng = engines
+    monkeypatch.setenv("SAI_FUSED_STEM", "1")
+    jeng = JaxEngine(jeng0.cfg, jeng0.params)
+    assert jeng._use_fused_stem
+    calls = []
+    tokens_fn = teng.model.encode_image_tokens
+    monkeypatch.setattr(teng.model, "encode_image_tokens",
+                        lambda t: calls.append(t.shape) or tokens_fn(t))
+    imgs = np.random.default_rng(16).uniform(size=shape).astype(np.float32)
+    want = np.asarray(jeng.img_inference_tiled_batch(jnp.asarray(imgs), ps,
+                                                     stride))
+    got = teng.img_inference_tiled_batch(torch.from_numpy(imgs), ps, stride)
+    assert calls == ([(2 * want.shape[1] * want.shape[2], 16, 64)] if fused
+                     else [])
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    with torch.inference_mode():
+        unfused = TT.tiled_image_features_batch(
+            torch.from_numpy(imgs), patch_size=ps, patch_stride=stride,
+            encode_fn=teng.model.encode_image_nchw,
+            vit_size=teng.cfg.image_size)
+    assert torch.equal(got, unfused)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (B1 feature splat, B2 fused LN->MLP, B3 panoptic
 paint, B4 tile sample, B5 attention) against their plain PyTorch versions
 on the card, and the wrappers' dispatch; the port's f32 forwards (kMaX,
-CLIP, DGCNN) against the caller's TF32 flags; the DGCNN on the card
+CLIP, DGCNN, CLIP's fused conv stem) against the caller's TF32 flags; the
+fused stem against the unfused tiler and the CPU; the DGCNN on the card
 against the CPU; the small kMaX in bf16 on the card against the CPU, its
 first-index argmax on tied bf16 logits and its batch-split bits.
 
@@ -1388,6 +1389,98 @@ def test_img_inference_tiled_on_card_matches_the_cpu():
         b = want.reshape(-1, got.shape[-1])
         cos = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
         assert float(cos.min()) >= 0.9999
+
+
+def _stem_engines(dev, compute_dtype=None):
+    """SMALL_CARD_CONFIG from one state dict, on `dev` and on the CPU."""
+    from spatially_aware_ai_tpu_torch.models.clip.engine import (
+        SMALL_CARD_CONFIG,
+        ClipEngine,
+    )
+
+    sd = ClipEngine.random(SMALL_CARD_CONFIG, seed=0,
+                           device="cpu").model.state_dict()
+    return tuple(ClipEngine(SMALL_CARD_CONFIG, sd,
+                            compute_dtype=compute_dtype, device=d)
+                 for d in (dev, "cpu"))
+
+
+# 2 frames of 384x512 at 256/128: the resize-once branch, 12 tiles
+_STEM_IMGS = np.random.default_rng(15).uniform(
+    size=(2, 384, 512, 3)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_stem_on_card_equals_the_unfused_tiler(dtype):
+    """The engine's tiler, through the fused conv stem, on the card
+    against the tiler without the stem there (the same
+    [tiles * g * g, 3 * p * p] matrix through the same product): within
+    1e-6 in f32 and 1 bf16 ulp of the largest magnitude in bf16, bitwise
+    expected; B2 and B5 once per vision layer in each."""
+    from spatially_aware_ai_tpu_torch.models.attention import max_bf16_ulps
+    from spatially_aware_ai_tpu_torch.models.clip import tiling as TT
+
+    dev = _card()
+    eng, _ = _stem_engines(dev, dtype)
+    x = torch.as_tensor(_STEM_IMGS, device=dev)
+    runs = {
+        "fused": lambda: eng.img_inference_tiled_batch(x, 256, 128),
+        "unfused": lambda: TT.tiled_image_features_batch(
+            x, patch_size=256, patch_stride=128,
+            encode_fn=eng.model.encode_image_nchw,
+            prep_dtype=eng.compute_dtype, vit_size=eng.cfg.image_size),
+    }
+    out = {}
+    for name, run in runs.items():
+        l0, a0 = L.launches, A.launches
+        with torch.inference_mode():
+            out[name] = run().cpu()
+        assert L.launches - l0 == A.launches - a0 == eng.cfg.vision_layers
+    got, want = out["fused"], out["unfused"]
+    assert got.shape == (2, 2, 3, eng.feature_dim)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        assert max_bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_fused_stem_on_card_matches_the_cpu():
+    """The fused stem's features on the card (B2 and B5 in the tower)
+    against the plain CPU engine on one state dict: 1e-4 absolute,
+    cosine >= 0.9999 per tile, as the unfused tiler is held."""
+    card, cpu = _stem_engines(_card())
+    got = card.img_inference_tiled_batch(_STEM_IMGS, 256, 128).cpu()
+    want = cpu.img_inference_tiled_batch(_STEM_IMGS, 256, 128)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    a, b = got.reshape(-1, got.shape[-1]), want.reshape(-1, got.shape[-1])
+    cos = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+    assert float(cos.min()) >= 0.9999
+
+
+@pytest.mark.cuda
+def test_fused_stem_does_not_depend_on_the_callers_tf32_flags():
+    """The stem's product runs outside the tower's full-f32 pin, so it
+    pins f32 itself: the fused features under a caller's TF32 flags equal
+    those with the flags off (within 1e-6 of their scale, as C10's test
+    holds the towers; one TF32 product moves them by about 1e-3)."""
+    card, _ = _stem_engines(_card())
+
+    def with_flags(matmul, cudnn):
+        torch.set_float32_matmul_precision(matmul)
+        torch.backends.cudnn.allow_tf32 = cudnn
+        try:
+            return card.img_inference_tiled_batch(_STEM_IMGS, 256, 128)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.cudnn.allow_tf32 = True   # torch's defaults
+
+    off = with_flags("highest", False)
+    scale = float(off.abs().max())
+    for run in (with_flags("high", True), with_flags("medium", True)):
+        assert float((run - off).abs().max()) <= 1e-6 * scale
 
 
 @pytest.mark.cuda

@@ -111,8 +111,6 @@ _XLA_BLOCK = ("the voxel block of an XLA lax.map that bounds a one-hot "
               "transient; the port adds votes in place")
 _PARAMS = ("flax parameters passed to a pure function; the port's encode_fn "
            "closes over its module's weights")
-_FUSED_STEM = ("the fused CLIP conv stem (SAI_FUSED_STEM), not yet ported: "
-               "ROADMAP A13")
 # "module::function(parameter)" of the JAX package with no counterpart in
 # the port, and why
 PARAM_NO_COUNTERPART = {
@@ -167,12 +165,6 @@ PARAM_NO_COUNTERPART = {
     "models/clip/tiling.py::tiled_image_features_batch(params)": _PARAMS,
     "models/clip/tiling.py::tiled_image_features_depthscaled(params)":
         _PARAMS,
-    "models/clip/tiling.py::tiled_image_features_batch(conv_kernel_fn)":
-        _FUSED_STEM,
-    "models/clip/tiling.py::tiled_image_features_batch(encode_tokens_fn)":
-        _FUSED_STEM,
-    "models/clip/tiling.py::tiled_image_features_batch(conv_patch)":
-        _FUSED_STEM,
 }
 
 # names this slice ported: none of them may hide in NO_COUNTERPART
